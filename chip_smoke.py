@@ -1,0 +1,412 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
+
+Run from the root of a checkout, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases (any failure ends the run with a non-zero exit and no result):
+
+  1. print the card's name and power limit; build the four kernels of
+     ``noir_backend_using_gnark_tpu_torch/csrc`` with nvcc for sm_90a,
+     all compilers at once;
+  2. hold each kernel against its plain PyTorch version on the card,
+     bit for bit (integers, tolerance zero; points compared in affine
+     form): K3 field ops on 2^20 random elements plus 0, 1 and p - 1;
+     K4 forward, inverse and coset NTTs at 2^10 and 2^16, batch 3; K1 at
+     4096 points with repeated, negated and infinite points; K2 at K = 3,
+     W = 43;
+  3. the golden check: the fixture circuit of tests/torch_port
+     (fixtures/meta.json) gives SRS, pk, vk and proof bytes equal to the
+     stored files, which the JAX package wrote;
+  4. the main path at 2^16 gates: Backend(device="cuda") preprocess ->
+     prove_with_pk -> verify_with_vk on the bench.py chain circuit, a
+     flipped proof byte must fail to verify, wall times of each phase,
+     and the launch counters (every kernel must have run inside
+     prove_with_pk);
+  5. each kernel timed at the main path's shapes beside its plain
+     version and its bound, printed as one JSON ``kernels`` line.
+
+The last line of standard output is the device line
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import random
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+PKG = "noir_backend_using_gnark_tpu_torch"
+FIXTURES = ROOT / "tests" / "torch_port" / "fixtures"
+
+#: Main-path circuit: bench.py's chain with 1 public row + 65535 gates
+#: = 2^16 rows, so the domain is exactly 2^16 and the SRS 2^17 points.
+MAIN_ROWS = (1 << 16) + 1
+MAIN_X = 3
+MAIN_SEED = 20260417
+
+# Card rates for the bounds (NVIDIA H100 SXM data sheet, at the full
+# 700 W): HBM3 at 3.35 TB/s; 67 TFLOP/s of float32 outside the tensor
+# cores = 132 SMs x 128 lanes x 2 flops x 1.98 GHz. Hopper has half as
+# many INT32 lanes as FP32 lanes per SM, so 32-bit integer multiply-adds
+# (IMAD, one per lane per clock) run at 67e12 / 4 per second.
+HBM_BYTES_PER_S = 3.35e12
+IMAD_PER_S = 67e12 / 4
+#: 32-bit multiply-adds in one 8-limb Montgomery product: 64 a*b and 64
+#: m*p wide products (two IMAD each: low and high word) + 8 for m.
+IMAD_PER_MONT_MUL = 2 * (64 + 64) + 8
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def chain_circuit(builder, rows: int):
+    """bench.py's chain: x public, then rows - 2 gates acc = acc * x
+    (every third) or acc = acc + x."""
+    cb = builder.CircuitBuilder()
+    x = cb.witness(public=True)
+    acc = x
+    for i in range(rows - 2):
+        acc = cb.mul(acc, x) if i % 3 == 0 else cb.add(acc, x)
+    return cb.build()
+
+
+def bound_ms(nbytes: float, imads: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = imads / IMAD_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA card")
+    if not (ROOT / PKG / "csrc").is_dir():
+        fail(f"{PKG}/csrc not found next to chip_smoke.py: run it from a checkout of the repo")
+    sys.path.insert(0, str(ROOT))
+
+    from noir_backend_using_gnark_tpu_torch import api, artifacts, config, cuda_build
+    from noir_backend_using_gnark_tpu_torch.acir import builder, solver
+    from noir_backend_using_gnark_tpu_torch.kzg import kzg
+    from noir_backend_using_gnark_tpu_torch.ops import curve as C
+    from noir_backend_using_gnark_tpu_torch.ops import field as F
+    from noir_backend_using_gnark_tpu_torch.ops import msm as M
+    from noir_backend_using_gnark_tpu_torch.ops import msm_kernels as MK
+    from noir_backend_using_gnark_tpu_torch.ops import ntt as N
+
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    print(smi, flush=True)
+
+    # ---- 1. build -----------------------------------------------------
+    t0 = time.perf_counter()
+    built = cuda_build.build_all()
+    print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
+                      "per_kernel_seconds": built}), flush=True)
+    build_dir = ROOT / "chiprun_out"
+    build_dir.mkdir(exist_ok=True)
+    (build_dir / "ptxas.log").write_text(
+        "\n".join(f"=== {k.name}\n{k.build_log}" for k in cuda_build.REGISTRY)
+    )
+
+    # ---- 2. kernels against their plain versions ----------------------
+    rng = random.Random(MAIN_SEED)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(MAIN_SEED)
+
+    def rand_field(spec, n):
+        vals = [0, 1, spec.modulus - 1] + [rng.randrange(spec.modulus) for _ in range(n - 3)]
+        return F.from_ints(vals, spec, device=dev)
+
+    def rand_field_fast(spec, n):
+        # Random canonical elements made on the card: 8 random words with
+        # the top word masked below p's top word (values < p).
+        w = torch.randint(-(2**31), 2**31 - 1, (8, n), dtype=torch.int32, device=dev, generator=gen)
+        w[7] &= 0x0FFFFFFF
+        return w
+
+    n3 = 1 << 20
+    for spec in (F.FR, F.FQ):
+        a = torch.cat([rand_field(spec, 1024), rand_field_fast(spec, n3 - 1024)], dim=1)
+        b = torch.cat([rand_field(spec, 1024).flip(-1), rand_field_fast(spec, n3 - 1024)], dim=1)
+        for name, k_fn, p_fn in (
+            ("mont_mul", lambda: F.mont_mul(a, b, spec), lambda: F._mont_mul_plain(a, b, spec)),
+            ("add", lambda: F.add(a, b, spec), lambda: F._add_plain(a, b, spec)),
+            ("sub", lambda: F.sub(a, b, spec), lambda: F._sub_plain(a, b, spec)),
+            ("neg", lambda: F.neg(a, spec), lambda: F._neg_plain(a, spec)),
+            ("mont_mul_bcast", lambda: F.mont_mul(a, b[:, :1], spec),
+             lambda: F._mont_mul_plain(a, b[:, :1], spec)),
+        ):
+            got, want = k_fn(), p_fn()
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"K3 {name} ({spec.name}) disagrees with its plain version")
+    print(json.dumps({"phase": "check", "kernel": "K3", "elements": n3, "ok": True}), flush=True)
+
+    for logn in (10, 16):
+        n = 1 << logn
+        dom = N.Domain.get(n)
+        x = rand_field_fast(F.FR, 3 * n).reshape(8, 3, n).contiguous()
+        rev = dom.rev(dev)
+        pairs = (
+            ("ntt", N.ntt(x, dom), N._transform_plain(x, dom.fwd_table(dev), rev)),
+            ("intt", N.intt(x, dom), N._transform_plain(x, dom.inv_table(dev), rev, dom.n_inv(dev))),
+            ("coset_ntt", N.coset_ntt(x, 5, dom),
+             N._transform_plain(F._mont_mul_plain(x, N.coset_scale(5, n, False, dev).reshape(8, 1, n), F.FR),
+                                dom.fwd_table(dev), rev)),
+        )
+        for name, got, want in pairs:
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"K4 {name} at 2^{logn} disagrees with its plain version")
+        back = N.intt(N.ntt(x, dom), dom)
+        check(torch.equal(back, x), f"K4 intt(ntt(x)) != x at 2^{logn}")
+    print(json.dumps({"phase": "check", "kernel": "K4", "sizes": [10, 16], "batch": 3, "ok": True}), flush=True)
+
+    def rand_points(n):
+        """n affine points: 64 distinct multiples of G, repeated, half
+        of the repeats negated, and every 17th point at infinity."""
+        table_x, table_y = C.generator_powers_table(256, dev)
+        sc = F.from_ints([rng.randrange(1, F.FR.modulus) for _ in range(64)], F.FR, to_mont=False, device=dev)
+        ax, ay, _ = C.to_affine(C.fixed_base_mul(table_x, table_y, sc))
+        idx = torch.arange(n, device=dev) % 64
+        x, y = ax[:, idx].contiguous(), ay[:, idx].contiguous()
+        negate = (torch.arange(n, device=dev) // 64) % 2 == 1
+        y = F.select(negate, F.neg(y, F.FQ), y)
+        inf = torch.arange(n, device=dev) % 17 == 0
+        return M.AffineBatch(x, y, inf)
+
+    def affine_equal(p, q) -> bool:
+        ax, ay, ai = C.to_affine(p)
+        bx, by, bi = C.to_affine(q)
+        return bool(torch.equal(ai, bi) and torch.equal(ax[:, ~ai], bx[:, ~bi]) and torch.equal(ay[:, ~ai], by[:, ~bi]))
+
+    pts = rand_points(4096)
+    sc = rand_field_fast(F.FR, 4096)
+    digits = MK.digit_stream(sc, pts.inf, 6)
+    got = MK.accumulate_buckets(pts.x, pts.y, pts.inf, sc, 6)
+    want = MK._accumulate_plain(pts.x, pts.y, digits, 6)
+    check(affine_equal(got, want), "K1 bucket sums disagree with the plain version (4096 points, c=6)")
+    print(json.dumps({"phase": "check", "kernel": "K1", "points": 4096, "c": 6, "ok": True}), flush=True)
+
+    totals = M._weighted_bucket_reduce(C.JacobianPoint(*(torch.stack([a, a.roll(1, -1), a.roll(2, -1)], 1) for a in got)))
+    inf_col = totals.map(lambda a: a.clone())
+    inf_col.z[:, 1, 5] = 0  # an infinite total inside the Horner chain
+    inf_col.z[:, 2, :] = 0  # an MSM whose every total is infinite
+    got_j = MK.join_windows(inf_col, 6)
+    want_j = MK._join_plain(inf_col, 6)
+    check(affine_equal(got_j, want_j), "K2 window join disagrees with the plain version (K=3, W=43)")
+    print(json.dumps({"phase": "check", "kernel": "K2", "K": 3, "W": 43, "ok": True}), flush=True)
+
+    # ---- 3. golden bytes ----------------------------------------------
+    meta = json.loads((FIXTURES / "meta.json").read_text())
+    t0 = time.perf_counter()
+    golden = {name: (FIXTURES / f"{name}.bin").read_bytes() for name in ("srs", "pk", "vk", "proof")}
+    circuit = chain_circuit(builder, meta["rows"])
+    values = solver.dense_values(circuit, solver.solve(circuit, {1: meta["x"]}))
+    srs = kzg.generate_srs(meta["srs_size"], int(meta["alpha"], 16), dev)
+    smoke_dir = ROOT / "build" / "smoke"
+    smoke_dir.mkdir(parents=True, exist_ok=True)
+    path = str(smoke_dir / "fixture_srs.hex")
+    artifacts.save_srs(srs, path)
+    cfg = config.Config(srs_path=path, srs_size=meta["srs_size"], prover_seed=bytes.fromhex(meta["prover_seed"]))
+    backend = api.Backend(cfg, device="cuda")
+    pk_b, vk_b = backend.preprocess(circuit)
+    proof_b = backend.prove_with_pk(circuit, values, pk_b)
+    mine = {"srs": artifacts.srs_to_bytes(srs), "pk": pk_b, "vk": vk_b, "proof": proof_b}
+    for name in golden:
+        check(mine[name] == golden[name], f"golden check: {name} bytes differ from the JAX package's")
+    check(backend.verify_with_vk(golden["proof"], values, circuit, golden["vk"]), "golden proof does not verify")
+    check(backend.prove_with_meta(circuit, values) == golden["proof"], "prove_with_meta differs from the golden proof")
+    print(json.dumps({"phase": "golden", "ok": True, "seconds": time.perf_counter() - t0}), flush=True)
+
+    # ---- 4. the main path at 2^16 gates --------------------------------
+    t_main = {}
+    t0 = time.perf_counter()
+    circuit = chain_circuit(builder, MAIN_ROWS)
+    t_main["build_circuit"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    values = solver.dense_values(circuit, solver.solve(circuit, {1: MAIN_X}))
+    t_main["solve"] = time.perf_counter() - t0
+
+    srs_size = 1 << 17
+    t0 = time.perf_counter()
+    srs = kzg.generate_srs(srs_size, rng.randrange(1, F.FR.modulus), dev)
+    torch.cuda.synchronize()
+    t_main["srs_generate"] = time.perf_counter() - t0
+    path = str(smoke_dir / "main_srs.hex")
+    t0 = time.perf_counter()
+    artifacts.save_srs(srs, path)
+    t_main["srs_save"] = time.perf_counter() - t0
+
+    seed = MAIN_SEED.to_bytes(32, "big")
+    backend = api.Backend(config.Config(srs_path=path, srs_size=srs_size, prover_seed=seed), device="cuda")
+    cuda_build.reset_counts()
+    pk_b, vk_b = backend.preprocess(circuit)
+    after_pre = cuda_build.counts()
+    proof_b = backend.prove_with_pk(circuit, values, pk_b)
+    after_prove = cuda_build.counts()
+    ok = backend.verify_with_vk(proof_b, values, circuit, vk_b)
+    launches = cuda_build.counts()
+    check(ok, "the 2^16-gate proof does not verify")
+    bad = bytearray(proof_b)
+    bad[-1] ^= 0x01
+    check(not backend.verify_with_vk(bytes(bad), values, circuit, vk_b), "a flipped proof byte still verifies")
+    in_prove = {k: after_prove[k] - after_pre[k] for k in launches}
+    for name, count in in_prove.items():
+        check(count > 0, f"kernel {name} was not launched inside prove_with_pk")
+    pk_n = artifacts.pk_from_bytes(pk_b).n
+    check(pk_n == 1 << 16, f"main-path domain is {pk_n}, not 2^16")
+    t_main.update({f"backend_{k}": v for k, v in backend.timings.items()})
+    print(json.dumps({"phase": "main_path", "gates": MAIN_ROWS - 2, "domain": pk_n, "srs_points": srs_size,
+                      "verified": ok, "seconds": t_main, "launches_main_path": launches,
+                      "launches_in_prove": in_prove, "proof_bytes": len(proof_b)}), flush=True)
+
+    # A second prove with the domain tables warm, then a third under the
+    # profiler: the device's busy and idle share of a prove.
+    t0 = time.perf_counter()
+    again = backend.prove_with_pk(circuit, values, pk_b)
+    warm_s = time.perf_counter() - t0
+    warm_rounds = {k: backend.timings[k] for k in ("round1", "round2", "round3", "round45")}
+    check(again == proof_b, "a second prove with the same seed gave other bytes")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        again = backend.prove_with_pk(circuit, values, pk_b)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    check(again == proof_b, "a profiled prove gave other bytes")
+    by_kernel = sorted(
+        ((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+         if e.self_device_time_total > 0),
+        key=lambda r: -r[1],
+    )
+    busy_ms = sum(r[1] for r in by_kernel)
+    print(json.dumps({"phase": "prove_profile", "warm_prove_s": warm_s, "warm_rounds_s": warm_rounds,
+                      "profiled_prove_s": prof_wall, "device_busy_ms": busy_ms,
+                      "device_idle_share": 1 - busy_ms / 1e3 / prof_wall,
+                      "top_device_ms": [[k[:60], ms, n] for k, ms, n in by_kernel[:12]]}), flush=True)
+
+    def device_ms(fn, symbols, calls: int):
+        """Device time per call of the named kernels, from the profiler
+        (None when it reports no device time)."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in p.key_averages() if any(s in e.key for s in symbols))
+        return total / 1e3 / calls if total else None
+
+    # ---- 5. kernel times at the main path's shapes -----------------------
+    rows = []
+    n4 = 1 << 18  # the quotient domain of round 3
+    a = rand_field_fast(F.FR, n4)
+    b = rand_field_fast(F.FR, n4)
+    ms = cuda_ms(lambda: F.mont_mul(a, b, F.FR), 50)
+    plain = cuda_ms(lambda: F._mont_mul_plain(a, b, F.FR), 3)
+    check(torch.equal(F.mont_mul(a, b, F.FR), F._mont_mul_plain(a, b, F.FR)), "K3 timing inputs disagree")
+    bd, by = bound_ms(3 * 32 * n4, IMAD_PER_MONT_MUL * n4)
+    rows.append(dict(name="field_mont_mul", kernel="K3", shape=f"(8, {n4}) Fr mont_mul",
+                     route="cuda", source=f"{PKG}/csrc/field.cu",
+                     replaces="noir_backend_using_gnark_tpu/ops/field.py:219", ms=ms, plain_ms=plain,
+                     bound_ms=bd, bound_by=by,
+                     device_ms=device_ms(lambda: F.mont_mul(a, b, F.FR), ["field_kernel"], 50)))
+
+    dom4 = N.Domain.get(n4)
+    x = rand_field_fast(F.FR, 14 * n4).reshape(8, 14, n4).contiguous()
+    table = dom4.fwd_table(dev)
+    ms = cuda_ms(lambda: N.ntt(x, dom4), 5)
+    t0 = time.perf_counter()
+    want = N._transform_plain(x, table, dom4.rev(dev))
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(N.ntt(x, dom4), want), "K4 timing inputs disagree")
+    nbytes = 2 * 32 * 14 * n4 + 32 * (n4 // 2)
+    bd, by = bound_ms(nbytes, IMAD_PER_MONT_MUL * 14 * (n4 // 2) * 18)
+    rows.append(dict(name="ntt", kernel="K4", shape=f"(8, 14, {n4}) forward NTT (round-3 coset transform)",
+                     route="cuda", source=f"{PKG}/csrc/ntt.cu",
+                     replaces="noir_backend_using_gnark_tpu/ops/ntt.py:174", ms=ms, plain_ms=plain,
+                     bound_ms=bd, bound_by=by,
+                     device_ms=device_ms(lambda: N.ntt(x, dom4), ["bitrev_kernel", "stage_kernel"], 5)))
+
+    npts = 1 << 17
+    pts = srs.g1_powers
+    sc = rand_field_fast(F.FR, npts)
+    digits = MK.digit_stream(sc, pts.inf, 6)
+    ms = cuda_ms(lambda: MK.accumulate_buckets(pts.x, pts.y, pts.inf, sc, 6), 3)
+    t0 = time.perf_counter()
+    want = MK._accumulate_plain(pts.x, pts.y, digits, 6)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    check(affine_equal(MK.accumulate_buckets(pts.x, pts.y, pts.inf, sc, 6), want), "K1 timing inputs disagree")
+    nonzero = int((digits != 0).sum())
+    w_count = MK.num_windows(6)
+    nbytes = 64 * npts + w_count * npts + 96 * w_count * MK.num_buckets(6)
+    bd, by = bound_ms(nbytes, IMAD_PER_MONT_MUL * 11 * nonzero)
+    rows.append(dict(name="msm_accum", kernel="K1", shape=f"{npts} points, c=6, W=43, B=33",
+                     route="cuda", source=f"{PKG}/csrc/msm_accum.cu",
+                     replaces="noir_backend_using_gnark_tpu/ops/msm_pallas.py:645", ms=ms, plain_ms=plain,
+                     bound_ms=bd, bound_by=by, nonzero_digits=nonzero,
+                     device_ms=device_ms(lambda: MK.accumulate_buckets(pts.x, pts.y, pts.inf, sc, 6),
+                                         ["accum_kernel", "fold_kernel"], 3)))
+
+    totals = M._weighted_bucket_reduce(C.JacobianPoint(*(torch.stack([a, a, a], 1) for a in want)))
+    ms = cuda_ms(lambda: MK.join_windows(totals, 6), 5)
+    plain = cuda_ms(lambda: MK._join_plain(totals, 6), 1, warmup=0)
+    check(affine_equal(MK.join_windows(totals, 6), MK._join_plain(totals, 6)), "K2 timing inputs disagree")
+    imads = IMAD_PER_MONT_MUL * 3 * (6 * (w_count - 1) * 7 + w_count * 16)
+    bd, by = bound_ms(96 * 3 * w_count + 96 * 3, imads)
+    rows.append(dict(name="msm_join", kernel="K2", shape="K=3 MSMs, W=43 windows, c=6",
+                     route="cuda", source=f"{PKG}/csrc/msm_join.cu",
+                     replaces="noir_backend_using_gnark_tpu/ops/msm_pallas.py:477", ms=ms, plain_ms=plain,
+                     bound_ms=bd, bound_by=by,
+                     device_ms=device_ms(lambda: MK.join_windows(totals, 6), ["join_kernel"], 5)))
+
+    name_of = {"K3": "field", "K4": "ntt", "K1": "msm_accum", "K2": "msm_join"}
+    for row in rows:
+        row["launches"] = launches[name_of[row["kernel"]]]
+        row["launches_in_prove"] = in_prove[name_of[row["kernel"]]]
+        row["max_abs_err"] = 0
+        row["library_ms"] = None
+    print(json.dumps({"card": smi}), flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

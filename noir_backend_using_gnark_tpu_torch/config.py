@@ -1,0 +1,42 @@
+"""Runtime configuration.
+
+Counterpart of ``noir_backend_using_gnark_tpu/config.py`` restricted to
+what this port runs today: PLONK over BN254 in the gnark v0.8 proof
+format, on one device. The other values the JAX package accepts
+(Groth16, the expanded proof layout, a device mesh) are refused by
+:meth:`Config.validate` rather than ignored.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass
+class Config:
+    curve: str = "bn254"
+    scheme: str = "plonk"
+    # gnark v0.8 linearized openings + gnark transcript, serialized as
+    # raw gnark WriteTo blobs (the reference's artifact format).
+    proof_format: str = "gnark"
+    # SRS cache (the reference's $XDG_CONFIG/noir-lang/srs.hex).
+    srs_path: Optional[str] = None
+    # SRS size when generating; grows on demand to the domain + 8.
+    srs_size: int = 1 << 12
+    # Deterministic proof blinding (None = fresh randomness per proof).
+    prover_seed: Optional[bytes] = None
+
+    def validate(self):
+        if self.curve != "bn254":
+            raise ValueError(f"unsupported curve {self.curve!r}: this port proves over bn254 only")
+        if self.scheme != "plonk":
+            raise ValueError(f"unsupported scheme {self.scheme!r}: this port has no Groth16 yet")
+        if self.proof_format != "gnark":
+            raise ValueError(
+                f"unsupported proof_format {self.proof_format!r}: this port emits the gnark format only"
+            )
+        return self
+
+
+DEFAULT = Config()
