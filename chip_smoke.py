@@ -13,9 +13,13 @@ Phases (any failure ends the run with a non-zero exit and no result):
   2. hold each kernel against its plain PyTorch version on the card,
      bit for bit (integers, tolerance zero; points compared in affine
      form): K3 field ops on 2^20 random elements plus 0, 1 and p - 1;
-     K4 forward, inverse and coset NTTs at 2^10 and 2^16, batch 3; K1 at
-     4096 points with repeated, negated and infinite points; K2 at K = 3,
-     W = 43;
+     K4 forward, inverse and coset NTTs at 2^10 and 2^16, batch 3; K1
+     at c = 6 on equal scalars, scalars r - 1, scalars with one nonzero
+     window, points all at infinity, 1, 33 and 4097 points, and 4096
+     points with repeated, negated and infinite points, and each K1
+     result equal bit for bit to a second call's; K2 at K = 3 and
+     K = 8, W = 43 (infinite totals, a total equal or opposite to the
+     accumulator) and at K = 1, W = 1;
   3. the golden check: the fixture circuit of tests/torch_port
      (fixtures/meta.json) gives SRS, pk, vk and proof bytes equal to the
      stored files, which the JAX package wrote;
@@ -60,6 +64,9 @@ IMAD_PER_S = 67e12 / 4
 #: 32-bit multiply-adds in one 8-limb Montgomery product: 64 a*b and 64
 #: m*p wide products (two IMAD each: low and high word) + 8 for m.
 IMAD_PER_MONT_MUL = 2 * (64 + 64) + 8
+#: Profiler names of the kernels each entry point launches.
+K1_SYMBOLS = ["k1_pass", "k1_slices", "k1_scan", "k1_runs", "k1_fold", "k1_final"]
+K2_SYMBOLS = ["k2_join"]
 
 
 def fail(msg: str) -> None:
@@ -103,6 +110,122 @@ def bound_ms(nbytes: float, imads: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = imads / IMAD_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rand_words(gen, n: int):
+    """n random canonical elements of either field, made on the card: 8
+    random words with the top word masked below p's top word."""
+    import torch
+
+    w = torch.randint(-(2**31), 2**31 - 1, (8, n), dtype=torch.int32, device=gen.device, generator=gen)
+    w[7] &= 0x0FFFFFFF
+    return w
+
+
+def rand_points(rng, dev, n: int):
+    """n affine points: 64 distinct multiples of G, repeated, half of
+    the repeats negated, and every 17th point at infinity."""
+    import torch
+
+    from noir_backend_using_gnark_tpu_torch.ops import curve as C
+    from noir_backend_using_gnark_tpu_torch.ops import field as F
+    from noir_backend_using_gnark_tpu_torch.ops import msm as M
+
+    table_x, table_y = C.generator_powers_table(256, dev)
+    sc = F.from_ints([rng.randrange(1, F.FR.modulus) for _ in range(64)], F.FR, to_mont=False, device=dev)
+    ax, ay, _ = C.to_affine(C.fixed_base_mul(table_x, table_y, sc))
+    idx = torch.arange(n, device=dev) % 64
+    x, y = ax[:, idx].contiguous(), ay[:, idx].contiguous()
+    negate = (torch.arange(n, device=dev) // 64) % 2 == 1
+    y = F.select(negate, F.neg(y, F.FQ), y)
+    inf = torch.arange(n, device=dev) % 17 == 0
+    return M.AffineBatch(x, y, inf)
+
+
+def affine_equal(p, q) -> bool:
+    """Two Jacobian batches hold the same points (tolerance zero)."""
+    import torch
+
+    from noir_backend_using_gnark_tpu_torch.ops import curve as C
+
+    ax, ay, ai = C.to_affine(p)
+    bx, by, bi = C.to_affine(q)
+    return bool(torch.equal(ai, bi) and torch.equal(ax[:, ~ai], bx[:, ~bi]) and torch.equal(ay[:, ~ai], by[:, ~bi]))
+
+
+def check_msm_kernels(dev, rng, gen) -> None:
+    """Phase 2 for K1 and K2: each kernel against its plain version, in
+    affine form, on the inputs that reach their edge cases (c = 6)."""
+    import torch
+
+    from noir_backend_using_gnark_tpu_torch.ops import curve as C
+    from noir_backend_using_gnark_tpu_torch.ops import field as F
+    from noir_backend_using_gnark_tpu_torch.ops import msm as M
+    from noir_backend_using_gnark_tpu_torch.ops import msm_kernels as MK
+
+    c = 6
+
+    def column(value: int, n: int):
+        return F.from_ints([value], F.FR, to_mont=False, device=dev).expand(8, n).contiguous()
+
+    base = rand_points(rng, dev, 4096)
+    every_inf = M.AffineBatch(base.x, base.y, torch.ones_like(base.inf))
+    one_window = F.from_ints([rng.randrange(1, 32) << (c * 20) for _ in range(4096)], F.FR,
+                             to_mont=False, device=dev)
+    cases = [
+        ("equal scalars (one bucket per window holds every point)", base, column(rng.randrange(F.FR.modulus), 4096)),
+        ("scalars r - 1 (a carry into the top window)", base, column(F.FR.modulus - 1, 4096)),
+        ("one nonzero window (w = 20)", base, one_window),
+        ("every point at infinity", every_inf, rand_words(gen, 4096)),
+        ("4096 points: repeated, negated and infinite", base, rand_words(gen, 4096)),
+    ]
+    for n in (1, 33, 4097):
+        cases.append((f"{n} points (a ragged last run)", rand_points(rng, dev, n), rand_words(gen, n)))
+    buckets = None
+    for name, pts, sc in cases:
+        got = MK.accumulate_buckets(pts.x, pts.y, pts.inf, sc, c)
+        again = MK.accumulate_buckets(pts.x, pts.y, pts.inf, sc, c)
+        want = MK._accumulate_plain(pts.x, pts.y, MK.digit_stream(sc, pts.inf, c), c)
+        torch.cuda.synchronize()
+        check(affine_equal(got, want), f"K1 bucket sums disagree with the plain version: {name}")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K1 gave other Jacobian coordinates on a second call: {name}")
+        print(json.dumps({"phase": "check", "kernel": "K1", "input": name, "points": pts.n, "c": c,
+                          "ok": True}), flush=True)
+        if pts.n == 4096 and name.startswith("4096"):
+            buckets = got
+
+    # K2 inputs: totals from the 4096-point buckets, rolled per MSM.
+    def totals_of(k_count: int):
+        stacked = C.JacobianPoint(*(torch.stack([a.roll(i, -1) for i in range(k_count)], 1) for a in buckets))
+        return M._weighted_bucket_reduce(stacked).map(lambda a: a.clone())
+
+    w_count = MK.num_windows(c)
+    t3 = totals_of(3)
+    t3.z[:, 1, 5] = 0  # an infinite total inside the Horner chain
+    t3.z[:, 2, :] = 0  # an MSM whose every total is infinite
+    t8 = totals_of(8)
+    # MSMs 0 and 1: the total of window 20 equals, or is the opposite
+    # of, the accumulator it is added to (a doubling and P + (-P)).
+    w0 = 20
+    acc = MK._join_plain(t8.map(lambda a: a[:, :2, w0 + 1 :]), c)
+    for _ in range(c):
+        acc = C.double(acc, C.PLAIN)
+    t8.x[:, :2, w0] = acc.x
+    t8.y[:, 0, w0] = acc.y[:, 0]
+    t8.y[:, 1, w0] = F.neg(acc.y[:, 1], F.FQ)
+    t8.z[:, :2, w0] = acc.z
+    t8.z[:, 2, :] = 0  # every total infinite
+    t8.z[:, 3, 5] = 0  # an infinite total inside the chain
+    t8.z[:, 4, w_count - 1] = 0  # an infinite top window: the chain starts at infinity
+    t1 = t8.map(lambda a: a[:, 5:6, :1].contiguous())
+    for name, totals in (("K=3, W=43, infinite totals", t3), ("K=8, W=43, equal, opposite and infinite", t8),
+                         ("K=1, W=1", t1)):
+        got = MK.join_windows(totals, c)
+        want = MK._join_plain(totals, c)
+        torch.cuda.synchronize()
+        check(affine_equal(got, want), f"K2 window join disagrees with the plain version: {name}")
+        print(json.dumps({"phase": "check", "kernel": "K2", "input": name, "ok": True}), flush=True)
 
 
 def main() -> int:
@@ -150,17 +273,10 @@ def main() -> int:
         vals = [0, 1, spec.modulus - 1] + [rng.randrange(spec.modulus) for _ in range(n - 3)]
         return F.from_ints(vals, spec, device=dev)
 
-    def rand_field_fast(spec, n):
-        # Random canonical elements made on the card: 8 random words with
-        # the top word masked below p's top word (values < p).
-        w = torch.randint(-(2**31), 2**31 - 1, (8, n), dtype=torch.int32, device=dev, generator=gen)
-        w[7] &= 0x0FFFFFFF
-        return w
-
     n3 = 1 << 20
     for spec in (F.FR, F.FQ):
-        a = torch.cat([rand_field(spec, 1024), rand_field_fast(spec, n3 - 1024)], dim=1)
-        b = torch.cat([rand_field(spec, 1024).flip(-1), rand_field_fast(spec, n3 - 1024)], dim=1)
+        a = torch.cat([rand_field(spec, 1024), rand_words(gen, n3 - 1024)], dim=1)
+        b = torch.cat([rand_field(spec, 1024).flip(-1), rand_words(gen, n3 - 1024)], dim=1)
         for name, k_fn, p_fn in (
             ("mont_mul", lambda: F.mont_mul(a, b, spec), lambda: F._mont_mul_plain(a, b, spec)),
             ("add", lambda: F.add(a, b, spec), lambda: F._add_plain(a, b, spec)),
@@ -177,7 +293,7 @@ def main() -> int:
     for logn in (10, 16):
         n = 1 << logn
         dom = N.Domain.get(n)
-        x = rand_field_fast(F.FR, 3 * n).reshape(8, 3, n).contiguous()
+        x = rand_words(gen, 3 * n).reshape(8, 3, n).contiguous()
         rev = dom.rev(dev)
         pairs = (
             ("ntt", N.ntt(x, dom), N._transform_plain(x, dom.fwd_table(dev), rev)),
@@ -193,40 +309,7 @@ def main() -> int:
         check(torch.equal(back, x), f"K4 intt(ntt(x)) != x at 2^{logn}")
     print(json.dumps({"phase": "check", "kernel": "K4", "sizes": [10, 16], "batch": 3, "ok": True}), flush=True)
 
-    def rand_points(n):
-        """n affine points: 64 distinct multiples of G, repeated, half
-        of the repeats negated, and every 17th point at infinity."""
-        table_x, table_y = C.generator_powers_table(256, dev)
-        sc = F.from_ints([rng.randrange(1, F.FR.modulus) for _ in range(64)], F.FR, to_mont=False, device=dev)
-        ax, ay, _ = C.to_affine(C.fixed_base_mul(table_x, table_y, sc))
-        idx = torch.arange(n, device=dev) % 64
-        x, y = ax[:, idx].contiguous(), ay[:, idx].contiguous()
-        negate = (torch.arange(n, device=dev) // 64) % 2 == 1
-        y = F.select(negate, F.neg(y, F.FQ), y)
-        inf = torch.arange(n, device=dev) % 17 == 0
-        return M.AffineBatch(x, y, inf)
-
-    def affine_equal(p, q) -> bool:
-        ax, ay, ai = C.to_affine(p)
-        bx, by, bi = C.to_affine(q)
-        return bool(torch.equal(ai, bi) and torch.equal(ax[:, ~ai], bx[:, ~bi]) and torch.equal(ay[:, ~ai], by[:, ~bi]))
-
-    pts = rand_points(4096)
-    sc = rand_field_fast(F.FR, 4096)
-    digits = MK.digit_stream(sc, pts.inf, 6)
-    got = MK.accumulate_buckets(pts.x, pts.y, pts.inf, sc, 6)
-    want = MK._accumulate_plain(pts.x, pts.y, digits, 6)
-    check(affine_equal(got, want), "K1 bucket sums disagree with the plain version (4096 points, c=6)")
-    print(json.dumps({"phase": "check", "kernel": "K1", "points": 4096, "c": 6, "ok": True}), flush=True)
-
-    totals = M._weighted_bucket_reduce(C.JacobianPoint(*(torch.stack([a, a.roll(1, -1), a.roll(2, -1)], 1) for a in got)))
-    inf_col = totals.map(lambda a: a.clone())
-    inf_col.z[:, 1, 5] = 0  # an infinite total inside the Horner chain
-    inf_col.z[:, 2, :] = 0  # an MSM whose every total is infinite
-    got_j = MK.join_windows(inf_col, 6)
-    want_j = MK._join_plain(inf_col, 6)
-    check(affine_equal(got_j, want_j), "K2 window join disagrees with the plain version (K=3, W=43)")
-    print(json.dumps({"phase": "check", "kernel": "K2", "K": 3, "W": 43, "ok": True}), flush=True)
+    check_msm_kernels(dev, rng, gen)
 
     # ---- 3. golden bytes ----------------------------------------------
     meta = json.loads((FIXTURES / "meta.json").read_text())
@@ -333,8 +416,8 @@ def main() -> int:
     # ---- 5. kernel times at the main path's shapes -----------------------
     rows = []
     n4 = 1 << 18  # the quotient domain of round 3
-    a = rand_field_fast(F.FR, n4)
-    b = rand_field_fast(F.FR, n4)
+    a = rand_words(gen, n4)
+    b = rand_words(gen, n4)
     ms = cuda_ms(lambda: F.mont_mul(a, b, F.FR), 50)
     plain = cuda_ms(lambda: F._mont_mul_plain(a, b, F.FR), 3)
     check(torch.equal(F.mont_mul(a, b, F.FR), F._mont_mul_plain(a, b, F.FR)), "K3 timing inputs disagree")
@@ -346,7 +429,7 @@ def main() -> int:
                      device_ms=device_ms(lambda: F.mont_mul(a, b, F.FR), ["field_kernel"], 50)))
 
     dom4 = N.Domain.get(n4)
-    x = rand_field_fast(F.FR, 14 * n4).reshape(8, 14, n4).contiguous()
+    x = rand_words(gen, 14 * n4).reshape(8, 14, n4).contiguous()
     table = dom4.fwd_table(dev)
     ms = cuda_ms(lambda: N.ntt(x, dom4), 5)
     t0 = time.perf_counter()
@@ -364,9 +447,9 @@ def main() -> int:
 
     npts = 1 << 17
     pts = srs.g1_powers
-    sc = rand_field_fast(F.FR, npts)
+    sc = rand_words(gen, npts)
     digits = MK.digit_stream(sc, pts.inf, 6)
-    ms = cuda_ms(lambda: MK.accumulate_buckets(pts.x, pts.y, pts.inf, sc, 6), 3)
+    ms = cuda_ms(lambda: MK.accumulate_buckets(pts.x, pts.y, pts.inf, sc, 6), 10)
     t0 = time.perf_counter()
     want = MK._accumulate_plain(pts.x, pts.y, digits, 6)
     torch.cuda.synchronize()
@@ -381,7 +464,7 @@ def main() -> int:
                      replaces="noir_backend_using_gnark_tpu/ops/msm_pallas.py:645", ms=ms, plain_ms=plain,
                      bound_ms=bd, bound_by=by, nonzero_digits=nonzero,
                      device_ms=device_ms(lambda: MK.accumulate_buckets(pts.x, pts.y, pts.inf, sc, 6),
-                                         ["accum_kernel", "fold_kernel"], 3)))
+                                         K1_SYMBOLS, 10)))
 
     totals = M._weighted_bucket_reduce(C.JacobianPoint(*(torch.stack([a, a, a], 1) for a in want)))
     ms = cuda_ms(lambda: MK.join_windows(totals, 6), 5)
@@ -389,11 +472,17 @@ def main() -> int:
     check(affine_equal(MK.join_windows(totals, 6), MK._join_plain(totals, 6)), "K2 timing inputs disagree")
     imads = IMAD_PER_MONT_MUL * 3 * (6 * (w_count - 1) * 7 + w_count * 16)
     bd, by = bound_ms(96 * 3 * w_count + 96 * 3, imads)
+    join_ms = device_ms(lambda: MK.join_windows(totals, 6), K2_SYMBOLS, 5)
+    # The rounds of dependent products each join ran, counted by K2.
+    rounds = torch.zeros(3, dtype=torch.int32, device=dev)
+    check(affine_equal(MK._join_cuda(totals, 6, rounds), MK.join_windows(totals, 6)),
+          "K2 with its round counter gave another sum")
+    chain = int(rounds.max())
     rows.append(dict(name="msm_join", kernel="K2", shape="K=3 MSMs, W=43 windows, c=6",
                      route="cuda", source=f"{PKG}/csrc/msm_join.cu",
                      replaces="noir_backend_using_gnark_tpu/ops/msm_pallas.py:477", ms=ms, plain_ms=plain,
-                     bound_ms=bd, bound_by=by,
-                     device_ms=device_ms(lambda: MK.join_windows(totals, 6), ["join_kernel"], 5)))
+                     bound_ms=bd, bound_by=by, device_ms=join_ms, dependent_products_per_join=chain,
+                     ns_per_dependent_product=join_ms * 1e6 / chain if join_ms else None))
 
     name_of = {"K3": "field", "K4": "ntt", "K1": "msm_accum", "K2": "msm_join"}
     for row in rows:

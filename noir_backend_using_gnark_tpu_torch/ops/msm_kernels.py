@@ -5,7 +5,8 @@ Counterpart of ``noir_backend_using_gnark_tpu/ops/msm_pallas.py``:
   * :func:`accumulate_buckets` replaces ``accumulate_buckets_pallas`` and
     keeps its contract: Jacobian bucket sums S[w][b] of shape (W, B),
     B = 2^(c-1) + 1, bucket 0 at infinity. On the card it launches
-    ``csrc/msm_accum.cu``;
+    ``csrc/msm_accum.cu``, which recodes the scalars, sorts the
+    (window, digit) pairs by bucket and sums them in fixed-length runs;
   * :func:`join_windows` replaces ``join_windows_pallas``: for totals
     T[k][w] of K <= 8 MSMs it returns sum_w 2^(c*w) T[k][w]. On the card
     it launches ``csrc/msm_join.cu``.
@@ -33,21 +34,28 @@ K1 = cuda_build.Kernel(
     "msm_accum",
     "msm_accum.cu",
     "msm_accumulate",
-    [ctypes.c_void_p] * 6
-    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int],
+    [ctypes.c_void_p] * 10
+    + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 3,
 )
 K2 = cuda_build.Kernel(
     "msm_join",
     "msm_join.cu",
     "msm_join",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_int],
+    [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_int],
 )
 
 #: Largest window width whose signed digits fit the int8 digit stream
 #: (magnitudes reach 2^(c-1)).
 MAX_WINDOW_BITS = 7
-#: Bucket tables folded per thread per fold launch in K1.
-FOLD = 16
+#: K1's constants as ``csrc/msm_accum.cu`` defines them, which size its
+#: scratch (the C entry refuses smaller scratch): sorted pairs summed per
+#: thread in registers (RUN), partial sums of one bucket added per
+#: thread in each later level (FAN), scalars per warp in the sort
+#: (CHUNK), and the most (window, bucket) keys its histograms hold.
+RUN = 16
+FAN = 2
+CHUNK = 256
+KEYS_MAX = 2560
 
 
 def num_windows(c: int, nbits: int = 254) -> int:
@@ -92,7 +100,8 @@ def signed_digits(scalars: torch.Tensor, c: int, num_w: int):
 
 
 def digit_stream(scalars: torch.Tensor, pinf: torch.Tensor, c: int) -> torch.Tensor:
-    """(W, N) int8 signed digits, 0 for points at infinity."""
+    """(W, N) int8 signed digits, 0 for points at infinity: the plain
+    path's recoding (the kernel recodes on the device)."""
     if c > MAX_WINDOW_BITS or c < 2:
         # A magnitude of 2^(c-1) = 128 at c = 8 wraps in int8 and would
         # silently drop those points from every bucket.
@@ -150,29 +159,55 @@ def _accumulate_plain(px, py, digits, c: int) -> C.JacobianPoint:
     return tbl.map(lambda a: a[:, :, 0].contiguous())
 
 
-def threads_per_window(n: int) -> int:
-    """K1 threads per window: about 256 points each, at most 512."""
-    return max(1, min(512, n // 256))
+def accum_plan(n: int, c: int) -> tuple[int, int, int, int]:
+    """K1's scratch for n points: (levels, table_len, cap_1, cap_2).
+
+    A bucket with n_k pairs has ceil(n_k / (RUN * FAN^(l-1))) partial
+    sums at level l; summed over the K = W * B buckets that is at most
+    cap_l = W * n // (RUN * FAN^(l-1)) + K, the size of level l's
+    scratch. ``levels`` is the least L >= 1 with RUN * FAN^L >= n, so
+    the final pass adds at most FAN partials per bucket. The int table
+    holds the sort's per-chunk counts (ceil(n / CHUNK), K), the key
+    counts (K) and the offsets of every level (levels + 1, K + 1)."""
+    keys = num_windows(c) * num_buckets(c)
+    levels = 1
+    while RUN * FAN**levels < n:
+        levels += 1
+    table_len = -(-n // CHUNK) * keys + keys + (levels + 1) * (keys + 1)
+    caps = [num_windows(c) * n // (RUN * FAN ** (lvl - 1)) + keys for lvl in (1, 2)]
+    return levels, table_len, caps[0], caps[1]
 
 
-def _accumulate_cuda(px, py, digits, c: int) -> C.JacobianPoint:
-    w_count, n = digits.shape
-    nb = num_buckets(c)
+def _accumulate_cuda(px, py, pinf, scalars, c: int) -> C.JacobianPoint:
+    n = px.shape[-1]
+    w_count, nb = num_windows(c), num_buckets(c)
+    if c < 2 or w_count * nb > KEYS_MAX:
+        # The signed recoding needs c >= 2; each warp of the sort keeps a
+        # shared histogram of KEYS_MAX (window, bucket) keys, so c <= 7.
+        raise ValueError(f"window width c={c}: msm_accum needs c >= 2 and W * B <= {KEYS_MAX} keys")
+    if w_count * n >= 1 << 31:
+        # The payload word is a 31-bit pair index and the sign bit.
+        raise ValueError(f"msm_accum: {n} points need W * N < 2^31 sorted pairs")
     for name, t, dt, shape in (
         ("px", px, torch.int32, (F.NUM_LIMBS, n)),
         ("py", py, torch.int32, (F.NUM_LIMBS, n)),
-        ("digits", digits, torch.int8, (w_count, n)),
+        ("pinf", pinf, torch.bool, (n,)),
+        ("scalars", scalars, torch.int32, (F.NUM_LIMBS, n)),
     ):
         cuda_build.check_tensor(t, f"msm_accum.{name}", dt, shape)
-    threads = threads_per_window(n)
+    _, table_len, cap_a, cap_b = accum_plan(n, c)
     kw = dict(dtype=torch.int32, device=px.device)
     out = torch.empty((3 * F.NUM_LIMBS, w_count, nb), **kw)
-    scratch_a = torch.empty((3 * F.NUM_LIMBS, w_count, nb, threads), **kw)
-    scratch_b = torch.empty((3 * F.NUM_LIMBS, w_count, nb, -(-threads // FOLD)), **kw)
+    pts = torch.empty((n, 2 * F.NUM_LIMBS), **kw)
+    table = torch.empty((table_len,), **kw)
+    payload = torch.empty((w_count * n,), **kw)
+    part_a = torch.empty((3 * F.NUM_LIMBS, cap_a), **kw)
+    part_b = torch.empty((3 * F.NUM_LIMBS, cap_b), **kw)
     K1.launch(
-        out.data_ptr(), scratch_a.data_ptr(), scratch_b.data_ptr(),
-        px.data_ptr(), py.data_ptr(), digits.data_ptr(),
-        n, w_count, nb, threads, FOLD,
+        out.data_ptr(), pts.data_ptr(), table.data_ptr(), payload.data_ptr(),
+        part_a.data_ptr(), part_b.data_ptr(),
+        px.data_ptr(), py.data_ptr(), pinf.data_ptr(), scalars.data_ptr(),
+        n, w_count, nb, c, table_len, cap_a, cap_b,
     )
     return C.JacobianPoint(out[: F.NUM_LIMBS], out[F.NUM_LIMBS : 2 * F.NUM_LIMBS], out[2 * F.NUM_LIMBS :])
 
@@ -181,10 +216,9 @@ def accumulate_buckets(px, py, pinf, scalars, c: int) -> C.JacobianPoint:
     """Bucket sums S as a Jacobian batch (W, B) for affine points
     ``px``, ``py`` (8, N) Fq Montgomery, ``pinf`` (N,) bool and
     canonical scalars (8, N)."""
-    digits = digit_stream(scalars, pinf, c)
     if px.device.type == "cpu":
-        return _accumulate_plain(px, py, digits, c)
-    return _accumulate_cuda(px.contiguous(), py.contiguous(), digits, c)
+        return _accumulate_plain(px, py, digit_stream(scalars, pinf, c), c)
+    return _accumulate_cuda(px.contiguous(), py.contiguous(), pinf.contiguous(), scalars.contiguous(), c)
 
 
 # ---------------------------------------------------------------------------
@@ -203,7 +237,9 @@ def _join_plain(totals: C.JacobianPoint, c: int) -> C.JacobianPoint:
     return acc
 
 
-def _join_cuda(totals: C.JacobianPoint, c: int) -> C.JacobianPoint:
+def _join_cuda(totals: C.JacobianPoint, c: int, rounds: torch.Tensor | None = None) -> C.JacobianPoint:
+    """``rounds``, if given, an int32 (K,) tensor on the card, receives
+    the rounds of dependent Montgomery products each join ran."""
     k_count, w_count = totals.x.shape[1:]
     if k_count > 8 or w_count > 128:
         raise ValueError(f"join kernel needs K <= 8, W <= 128; got K={k_count}, W={w_count}")
@@ -211,7 +247,10 @@ def _join_cuda(totals: C.JacobianPoint, c: int) -> C.JacobianPoint:
     for name, t in zip("xyz", coords):
         cuda_build.check_tensor(t, f"msm_join.{name}", torch.int32, (F.NUM_LIMBS, k_count, w_count))
     out = torch.empty((3 * F.NUM_LIMBS, k_count), dtype=torch.int32, device=coords[0].device)
-    K2.launch(out.data_ptr(), *(t.data_ptr() for t in coords), k_count, w_count, c)
+    if rounds is not None:
+        cuda_build.check_tensor(rounds, "msm_join.rounds", torch.int32, (k_count,))
+    K2.launch(out.data_ptr(), 0 if rounds is None else rounds.data_ptr(),
+              *(t.data_ptr() for t in coords), k_count, w_count, c)
     return C.JacobianPoint(out[: F.NUM_LIMBS], out[F.NUM_LIMBS : 2 * F.NUM_LIMBS], out[2 * F.NUM_LIMBS :])
 
 

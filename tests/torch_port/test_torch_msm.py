@@ -9,6 +9,8 @@ own, and the quick tests hold the port against the JAX package's digit
 recoding, its XLA MSM and host-integer oracles.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -232,11 +234,82 @@ def test_weighted_bucket_reduce_matches_oracle():
 # ---------------------------------------------------------------------------
 
 
-def test_msm_matches_jax_2e10():
-    pts, scalars = host_points(8, 1 << 10, distinct=16)
+#: Inputs that reach the edge cases of K1's recoding, sort and runs.
+EDGE_CASES = ["random", "equal_scalars", "r_minus_1", "one_window", "all_infinity"]
+
+
+def edge_case(case: str, pts: list, scalars: list, c: int = M.WINDOW_BITS):
+    """``host_points`` output turned into one of EDGE_CASES: every
+    scalar equal (one bucket per window holds every point), r - 1 (a
+    carry into the top window), one nonzero digit in window 20, or every
+    point at infinity."""
+    if case == "equal_scalars":
+        scalars = [scalars[0]] * len(scalars)
+    elif case == "r_minus_1":
+        scalars = [R - 1] * len(scalars)
+    elif case == "one_window":
+        scalars = [(s % 31 + 1) << (c * 20) for s in scalars]
+    elif case == "all_infinity":
+        pts = [None] * len(pts)
+    return pts, scalars
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_msm_matches_jax_2e10(case):
+    pts, scalars = edge_case(case, *host_points(8, 1 << 10, distinct=16))
     got = M.msm_ints(pts, scalars)
     assert got == JM.msm_ints(pts, scalars)
     assert got == H.g1_msm(pts, scalars)
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+@pytest.mark.parametrize("n", [1, 33, 4097, 1 << 17])
+def test_accum_plan_holds_every_level(case, n):
+    """K1's scratch sizes (``accum_plan``) hold the partial sums of every
+    reduction level, and the final pass adds at most FAN per bucket."""
+    pts, scalars = host_points(10, 64)
+    pts, scalars = edge_case(case, pts, scalars)
+    c = M.WINDOW_BITS
+    reps = -(-n // 64)
+    tiled = F.from_ints(scalars, F.FR, to_mont=False).repeat(1, reps)[:, :n]
+    pinf = torch.tensor([pt is None for pt in pts]).repeat(reps)[:n]
+    digits = MK.digit_stream(tiled, pinf, c).to(torch.int64)
+    keys = torch.arange(digits.shape[0]).unsqueeze(1) * MK.num_buckets(c) + digits.abs()
+    counts = torch.bincount(keys[digits != 0], minlength=digits.shape[0] * MK.num_buckets(c))
+    levels, table_len, cap_1, cap_2 = MK.accum_plan(n, c)
+    keys = digits.shape[0] * MK.num_buckets(c)
+    assert table_len == -(-n // MK.CHUNK) * keys + keys + (levels + 1) * (keys + 1)
+    per_level = [-(-counts // (MK.RUN * MK.FAN ** (lvl - 1))) for lvl in range(1, levels + 1)]
+    assert int(per_level[0].sum()) <= cap_1
+    assert all(int(p.sum()) <= cap_2 for p in per_level[1:])
+    assert int(per_level[-1].max()) <= MK.FAN
+    assert levels == 1 or MK.RUN * MK.FAN ** (levels - 1) < n
+
+
+def test_k1_constants_match_its_source():
+    """The wrapper sizes K1's scratch with the constants that
+    csrc/msm_accum.cu defines, and KEYS_MAX holds every c <= 7."""
+    src = (MK.cuda_build.CSRC / "msm_accum.cu").read_text()
+    defines = dict(re.findall(r"^#define (\w+) (\d+)$", src, flags=re.M))
+    for name in ("RUN", "FAN", "KEYS_MAX"):
+        assert int(defines[name]) == getattr(MK, name), name
+    assert 32 * int(defines["SCALARS_PER_LANE"]) == MK.CHUNK
+    assert all(MK.num_windows(c) * MK.num_buckets(c) <= MK.KEYS_MAX for c in range(2, 8))
+    assert MK.num_windows(8) * MK.num_buckets(8) > MK.KEYS_MAX
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The CUDA entry points raise on CPU tensors: no path falls back to
+    the plain versions."""
+    batch = M.affine_from_ints(host_points(11, 12)[0])
+    sc = F.from_ints(list(range(12)), F.FR, to_mont=False)
+    with pytest.raises(ValueError, match="CUDA device"):
+        MK._accumulate_cuda(batch.x, batch.y, batch.inf, sc, 6)
+    with pytest.raises(ValueError, match=r"W \* B <= 2560"):
+        MK._accumulate_cuda(batch.x, batch.y, batch.inf, sc, 8)
+    totals = C.from_affine_ints(host_points(11, 12)[0]).map(lambda a: a.reshape(8, 3, 4))
+    with pytest.raises(ValueError, match="CUDA device"):
+        MK._join_cuda(totals, 6)
 
 
 def test_msm_all_zero_scalars_is_infinity():
