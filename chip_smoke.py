@@ -13,7 +13,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
   2. hold each kernel against its plain PyTorch version on the card,
      bit for bit (integers, tolerance zero; points compared in affine
      form): K3 field ops on 2^20 random elements plus 0, 1 and p - 1;
-     K4 forward, inverse and coset NTTs at 2^10 and 2^16, batch 3; K1
+     K4 forward, inverse and coset NTTs at every size of ``K4_SIZES``
+     (one, two and three passes), and intt(ntt(x)) == x at (14, 2^18); K1
      at c = 6 on equal scalars, scalars r - 1, scalars with one nonzero
      window, points all at infinity, 1, 33 and 4097 points, and 4096
      points with repeated, negated and infinite points, and each K1
@@ -29,7 +30,9 @@ Phases (any failure ends the run with a non-zero exit and no result):
      and the launch counters (every kernel must have run inside
      prove_with_pk);
   5. each kernel timed at the main path's shapes beside its plain
-     version and its bound, printed as one JSON ``kernels`` line.
+     version and its bound, printed as one JSON ``kernels`` line (K4
+     also at (3, 2^16) inverse, round 1's shape, with its launches per
+     call, and at 2^20 and 2^24, batch 1).
 
 The last line of standard output is the device line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -67,6 +70,10 @@ IMAD_PER_MONT_MUL = 2 * (64 + 64) + 8
 #: Profiler names of the kernels each entry point launches.
 K1_SYMBOLS = ["k1_pass", "k1_slices", "k1_scan", "k1_runs", "k1_fold", "k1_final"]
 K2_SYMBOLS = ["k2_join"]
+K4_SYMBOLS = ["ntt_pass"]
+#: log2 n of the K4 checks: one pass up to 2^9, two up to 2^18, three
+#: above (2^19, 2^20, 2^23).
+K4_SIZES = (0, 1, 2, 5, 8, 9, 10, 11, 12, 16, 17, 18, 19, 20, 23)
 
 
 def fail(msg: str) -> None:
@@ -228,6 +235,41 @@ def check_msm_kernels(dev, rng, gen) -> None:
         print(json.dumps({"phase": "check", "kernel": "K2", "input": name, "ok": True}), flush=True)
 
 
+def check_ntt_kernel(dev, gen) -> None:
+    """Phase 2 for K4: forward, inverse and coset transforms against the
+    plain radix-2 version, bit for bit, at every size of K4_SIZES."""
+    import torch
+
+    from noir_backend_using_gnark_tpu_torch.ops import field as F
+    from noir_backend_using_gnark_tpu_torch.ops import ntt as N
+
+    for logn in K4_SIZES:
+        n = 1 << logn
+        batch = 5 if logn <= 12 else 3 if logn <= 18 else 1
+        dom = N.Domain.get(n)
+        x = rand_words(gen, batch * n).reshape(8, batch, n).contiguous()
+        rev = dom.rev(dev)
+        coset_in = F._mont_mul_plain(x, N.coset_scale(5, n, False, dev).reshape(8, 1, n), F.FR)
+        pairs = (
+            ("ntt", lambda: N.ntt(x, dom), lambda: N._transform_plain(x, dom.fwd_table(dev), rev)),
+            ("intt", lambda: N.intt(x, dom),
+             lambda: N._transform_plain(x, dom.inv_table(dev), rev, dom.n_inv(dev))),
+            ("coset_ntt", lambda: N.coset_ntt(x, 5, dom),
+             lambda: N._transform_plain(coset_in, dom.fwd_table(dev), rev)),
+        )
+        for name, k_fn, p_fn in pairs:
+            got, want = k_fn(), p_fn()
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"K4 {name} at 2^{logn} (batch {batch}) disagrees with its plain version")
+        print(json.dumps({"phase": "check", "kernel": "K4", "logn": logn, "batch": batch,
+                          "passes": len(N.ntt_plan(logn)), "ok": True}), flush=True)
+    dom = N.Domain.get(1 << 18)
+    x = rand_words(gen, 14 << 18).reshape(8, 14, 1 << 18).contiguous()
+    check(torch.equal(N.intt(N.ntt(x, dom), dom), x), "K4 intt(ntt(x)) != x at (14, 2^18)")
+    print(json.dumps({"phase": "check", "kernel": "K4", "input": "intt(ntt(x)) == x at (14, 2^18)",
+                      "ok": True}), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -290,25 +332,7 @@ def main() -> int:
             check(torch.equal(got, want), f"K3 {name} ({spec.name}) disagrees with its plain version")
     print(json.dumps({"phase": "check", "kernel": "K3", "elements": n3, "ok": True}), flush=True)
 
-    for logn in (10, 16):
-        n = 1 << logn
-        dom = N.Domain.get(n)
-        x = rand_words(gen, 3 * n).reshape(8, 3, n).contiguous()
-        rev = dom.rev(dev)
-        pairs = (
-            ("ntt", N.ntt(x, dom), N._transform_plain(x, dom.fwd_table(dev), rev)),
-            ("intt", N.intt(x, dom), N._transform_plain(x, dom.inv_table(dev), rev, dom.n_inv(dev))),
-            ("coset_ntt", N.coset_ntt(x, 5, dom),
-             N._transform_plain(F._mont_mul_plain(x, N.coset_scale(5, n, False, dev).reshape(8, 1, n), F.FR),
-                                dom.fwd_table(dev), rev)),
-        )
-        for name, got, want in pairs:
-            torch.cuda.synchronize()
-            check(torch.equal(got, want), f"K4 {name} at 2^{logn} disagrees with its plain version")
-        back = N.intt(N.ntt(x, dom), dom)
-        check(torch.equal(back, x), f"K4 intt(ntt(x)) != x at 2^{logn}")
-    print(json.dumps({"phase": "check", "kernel": "K4", "sizes": [10, 16], "batch": 3, "ok": True}), flush=True)
-
+    check_ntt_kernel(dev, gen)
     check_msm_kernels(dev, rng, gen)
 
     # ---- 3. golden bytes ----------------------------------------------
@@ -334,6 +358,10 @@ def main() -> int:
     print(json.dumps({"phase": "golden", "ok": True, "seconds": time.perf_counter() - t0}), flush=True)
 
     # ---- 4. the main path at 2^16 gates --------------------------------
+    # Drop the tables the checks built, so that the first prove builds
+    # its own, as in a fresh process.
+    N.Domain._cache.clear()
+    N._COSET_CACHE.clear()
     t_main = {}
     t0 = time.perf_counter()
     circuit = chain_circuit(builder, MAIN_ROWS)
@@ -401,17 +429,26 @@ def main() -> int:
                       "device_idle_share": 1 - busy_ms / 1e3 / prof_wall,
                       "top_device_ms": [[k[:60], ms, n] for k, ms, n in by_kernel[:12]]}), flush=True)
 
-    def device_ms(fn, symbols, calls: int):
-        """Device time per call of the named kernels, from the profiler
-        (None when it reports no device time)."""
+    def kernel_profile(fn, symbols, calls: int):
+        """Device ms and kernel launches per call of the named kernels,
+        from the profiler (ms None when it reports no device time). The
+        calls are made twice and only the second round is kept: in a
+        window of its own the profiler was seen to miss a launch."""
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in p.key_averages() if any(s in e.key for s in symbols))
-        return total / 1e3 / calls if total else None
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)) as p:
+            for _ in range(2):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                p.step()
+        events = [e for e in p.key_averages() if any(s in e.key for s in symbols) and e.self_device_time_total > 0]
+        total = sum(e.self_device_time_total for e in events)
+        return (total / 1e3 / calls if total else None), sum(e.count for e in events) / calls
+
+    def device_ms(fn, symbols, calls: int):
+        return kernel_profile(fn, symbols, calls)[0]
 
     # ---- 5. kernel times at the main path's shapes -----------------------
     rows = []
@@ -428,22 +465,39 @@ def main() -> int:
                      bound_ms=bd, bound_by=by,
                      device_ms=device_ms(lambda: F.mont_mul(a, b, F.FR), ["field_kernel"], 50)))
 
+    def k4_row(batch: int, logn: int, inverse: bool, reps: int) -> dict:
+        """K4 at (8, batch, 2^logn): CUDA-event ms, profiler device ms,
+        launches per call and the bound (n/2 log2 n products per
+        polynomial, plus n for the inverse's 1/n; each word read and
+        written once, and the table read once)."""
+        n = 1 << logn
+        dom = N.Domain.get(n)
+        x = rand_words(gen, batch * n).reshape(8, batch, n).contiguous()
+        fn = (lambda: N.intt(x, dom)) if inverse else (lambda: N.ntt(x, dom))
+        dev_ms, per_call = kernel_profile(fn, K4_SYMBOLS, reps)
+        products = batch * ((n // 2) * logn + (n if inverse else 0))
+        bd, by = bound_ms(2 * 32 * batch * n + 32 * (n // 2), IMAD_PER_MONT_MUL * products)
+        return dict(shape=f"(8, {batch}, 2^{logn}) {'inverse' if inverse else 'forward'}",
+                    ms=cuda_ms(fn, reps), device_ms=dev_ms, launches_per_call=per_call,
+                    passes=len(N.ntt_plan(logn)), bound_ms=bd, bound_by=by)
+
+    main_fwd = k4_row(14, 18, False, 10)
     dom4 = N.Domain.get(n4)
     x = rand_words(gen, 14 * n4).reshape(8, 14, n4).contiguous()
-    table = dom4.fwd_table(dev)
-    ms = cuda_ms(lambda: N.ntt(x, dom4), 5)
     t0 = time.perf_counter()
-    want = N._transform_plain(x, table, dom4.rev(dev))
+    want = N._transform_plain(x, dom4.fwd_table(dev), dom4.rev(dev))
     torch.cuda.synchronize()
     plain = (time.perf_counter() - t0) * 1e3
     check(torch.equal(N.ntt(x, dom4), want), "K4 timing inputs disagree")
-    nbytes = 2 * 32 * 14 * n4 + 32 * (n4 // 2)
-    bd, by = bound_ms(nbytes, IMAD_PER_MONT_MUL * 14 * (n4 // 2) * 18)
-    rows.append(dict(name="ntt", kernel="K4", shape=f"(8, 14, {n4}) forward NTT (round-3 coset transform)",
+    more_shapes = [k4_row(3, 16, True, 20), k4_row(1, 20, False, 5), k4_row(1, 24, False, 2)]
+    for row in (main_fwd, more_shapes[0]):
+        check(round(row["launches_per_call"]) == 2,
+              f"K4 made {row['launches_per_call']} launches per call at {row['shape']}")
+    rows.append(dict(name="ntt", kernel="K4", shape="(8, 14, 2^18) forward NTT (round-3 coset transform)",
                      route="cuda", source=f"{PKG}/csrc/ntt.cu",
-                     replaces="noir_backend_using_gnark_tpu/ops/ntt.py:174", ms=ms, plain_ms=plain,
-                     bound_ms=bd, bound_by=by,
-                     device_ms=device_ms(lambda: N.ntt(x, dom4), ["bitrev_kernel", "stage_kernel"], 5)))
+                     replaces="noir_backend_using_gnark_tpu/ops/ntt.py:174", ms=main_fwd["ms"], plain_ms=plain,
+                     bound_ms=main_fwd["bound_ms"], bound_by=main_fwd["bound_by"], device_ms=main_fwd["device_ms"],
+                     launches_per_call=main_fwd["launches_per_call"], other_shapes=more_shapes))
 
     npts = 1 << 17
     pts = srs.g1_powers

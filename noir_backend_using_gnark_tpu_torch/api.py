@@ -64,8 +64,20 @@ class Backend:
 
     # -- proving operations ----------------------------------------------
 
+    def _require_bn254(self, op: str) -> None:
+        """Proving needs the BN254 G1/pairing engine. As in the JAX
+        package, ``curve="bls12_381"`` is a valid configuration whose
+        proving operations raise (the reference's bls12_381 feature has
+        no Go-side counterpart either)."""
+        if self.config.curve != "bn254":
+            raise BackendError(
+                f"{op}: proving is bn254-only (curve={self.config.curve!r}; "
+                "the reference's bls12_381 feature is felt-codec-only too)"
+            )
+
     def preprocess(self, circuit: model.Circuit) -> tuple[bytes, bytes]:
         """ACIR -> (pk bytes, vk bytes) (backend.rs:81-83)."""
+        self._require_bn254("preprocess")
         t0 = time.perf_counter()
         pc = lowering.lower_to_plonk(circuit)
         srs = self._srs_for(plonk_setup.domain_size_for(pc))
@@ -79,6 +91,7 @@ class Backend:
     def prove_with_pk(self, circuit: model.Circuit, values: list, proving_key: bytes) -> bytes:
         """Dense witness values (1-based order, missing = 0) + pk blob ->
         gnark-format proof bytes (backend.rs:85-94)."""
+        self._require_bn254("prove_with_pk")
         t0 = time.perf_counter()
         pc = lowering.lower_to_plonk(circuit)
         pk = artifacts.pk_from_bytes(proving_key, device=self.device)
@@ -101,6 +114,7 @@ class Backend:
                        verification_key: bytes) -> bool:
         """Proof bytes + dense public-input values + vk blob -> bool
         (backend.rs:96-106). Host-only: O(1) points and two pairings."""
+        self._require_bn254("verify_with_vk")
         t0 = time.perf_counter()
         pc = lowering.lower_to_plonk(circuit)
         publics = self._extract_publics(pc, public_inputs)

@@ -2,9 +2,11 @@
 
 Counterpart of ``noir_backend_using_gnark_tpu/config.py`` restricted to
 what this port runs today: PLONK over BN254 in the gnark v0.8 proof
-format, on one device. The other values the JAX package accepts
-(Groth16, the expanded proof layout, a device mesh) are refused by
-:meth:`Config.validate` rather than ignored.
+format, on one device. ``curve="bls12_381"`` is accepted as the JAX
+package accepts it, and proving with it raises in ``api.Backend``. The
+other values the JAX package accepts (Groth16, the expanded proof
+layout, a device mesh) are refused by :meth:`Config.validate` rather
+than ignored.
 """
 
 from __future__ import annotations
@@ -28,8 +30,10 @@ class Config:
     prover_seed: Optional[bytes] = None
 
     def validate(self):
-        if self.curve != "bn254":
-            raise ValueError(f"unsupported curve {self.curve!r}: this port proves over bn254 only")
+        if self.curve not in ("bn254", "bls12_381"):
+            raise ValueError(f"unsupported curve {self.curve!r}")
+        # bls12_381 is accepted, as in the JAX package: the proving
+        # operations of api.Backend raise BackendError for it (bn254-only).
         if self.scheme != "plonk":
             raise ValueError(f"unsupported scheme {self.scheme!r}: this port has no Groth16 yet")
         if self.proof_format != "gnark":

@@ -46,7 +46,7 @@
 //      so the short tail levels cost little latency.
 #include "curve.cuh"
 
-// W * B for 2 <= c <= 7 is at most 37 * 65 = 2405 keys.
+// W * B for 3 <= c <= 7 is at most 37 * 65 = 2405 keys.
 #define KEYS_MAX 2560
 // Sorted pairs summed per thread in registers (one run), and partial
 // sums of one key added per thread in each later level (PERF.md has the
@@ -321,7 +321,9 @@ extern "C" int msm_accumulate(void* out, void* pts, void* table, void* payload, 
                               long long table_len, long long cap_a, long long cap_b,
                               void* stream) {
   const long long K = (long long)W * B;
-  if (n <= 0 || c < 2 || c > 7 || W <= 0 || B != (1 << (c - 1)) + 1 || K > KEYS_MAX ||
+  // c >= 3: the signed recoding's top carry needs c * W >= 255 bits, and
+  // c = 2 gives 254.
+  if (n <= 0 || c < 3 || c > 7 || W <= 0 || B != (1 << (c - 1)) + 1 || K > KEYS_MAX ||
       (long long)W * n >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   const int levels = num_levels(n);

@@ -47,6 +47,12 @@ K2 = cuda_build.Kernel(
 #: Largest window width whose signed digits fit the int8 digit stream
 #: (magnitudes reach 2^(c-1)).
 MAX_WINDOW_BITS = 7
+#: Smallest window width whose signed recoding keeps every carry: the
+#: top window's carry needs c * W >= 255 bits, and at c = 2 (W = 127)
+#: c * W = 254, so a scalar whose top window carries (r - 1, for one)
+#: would lose it. The JAX package's ``signed_digits`` shares the flaw
+#: at c = 2 and is left as it is, as the reference.
+MIN_WINDOW_BITS = 3
 #: K1's constants as ``csrc/msm_accum.cu`` defines them, which size its
 #: scratch (the C entry refuses smaller scratch): sorted pairs summed per
 #: thread in registers (RUN), partial sums of one bucket added per
@@ -102,11 +108,13 @@ def signed_digits(scalars: torch.Tensor, c: int, num_w: int):
 def digit_stream(scalars: torch.Tensor, pinf: torch.Tensor, c: int) -> torch.Tensor:
     """(W, N) int8 signed digits, 0 for points at infinity: the plain
     path's recoding (the kernel recodes on the device)."""
-    if c > MAX_WINDOW_BITS or c < 2:
+    if c > MAX_WINDOW_BITS or c < MIN_WINDOW_BITS:
         # A magnitude of 2^(c-1) = 128 at c = 8 wraps in int8 and would
-        # silently drop those points from every bucket.
+        # silently drop those points from every bucket; below c = 3 the
+        # top window's carry is lost (see MIN_WINDOW_BITS).
         raise ValueError(
-            f"window width c={c}: the int8 digit stream needs 2 <= c <= {MAX_WINDOW_BITS}"
+            f"window width c={c}: the int8 digit stream needs "
+            f"{MIN_WINDOW_BITS} <= c <= {MAX_WINDOW_BITS}"
         )
     mags, negs = signed_digits(scalars, c, num_windows(c))
     digits = torch.where(negs, -mags, mags)
@@ -181,10 +189,13 @@ def accum_plan(n: int, c: int) -> tuple[int, int, int, int]:
 def _accumulate_cuda(px, py, pinf, scalars, c: int) -> C.JacobianPoint:
     n = px.shape[-1]
     w_count, nb = num_windows(c), num_buckets(c)
-    if c < 2 or w_count * nb > KEYS_MAX:
-        # The signed recoding needs c >= 2; each warp of the sort keeps a
-        # shared histogram of KEYS_MAX (window, bucket) keys, so c <= 7.
-        raise ValueError(f"window width c={c}: msm_accum needs c >= 2 and W * B <= {KEYS_MAX} keys")
+    if c < MIN_WINDOW_BITS or w_count * nb > KEYS_MAX:
+        # The signed recoding needs c >= 3 (MIN_WINDOW_BITS); each warp of
+        # the sort keeps a shared histogram of KEYS_MAX (window, bucket)
+        # keys, so c <= 7.
+        raise ValueError(
+            f"window width c={c}: msm_accum needs c >= {MIN_WINDOW_BITS} and W * B <= {KEYS_MAX} keys"
+        )
     if w_count * n >= 1 << 31:
         # The payload word is a 31-bit pair index and the sign bit.
         raise ValueError(f"msm_accum: {n} points need W * N < 2^31 sorted pairs")

@@ -8,8 +8,12 @@ inverse transform including its 1/n.
 :func:`transform` is the wrapper of kernel K4 (``csrc/ntt.cu``): on a
 CUDA tensor it launches the kernel, on a CPU tensor it runs the plain
 version beside it (bit reversal, then log2 n butterfly stages over the
-plain field versions). Coset transforms scale by the coset powers with one
-K3 multiply on the way in or out.
+plain field versions). The kernel splits log2 n into passes of at most
+``LMAX`` bits (:func:`ntt_plan`); :func:`_transform_four_step_plain`
+follows its pass plan and index math on the CPU, for the tests. Coset
+transforms scale by the coset powers with one K3 multiply on the way in
+or out. The twiddle and coset tables are geometric series built on the
+tensor's device by doubling (:func:`power_table`).
 """
 
 from __future__ import annotations
@@ -33,16 +37,38 @@ K4 = cuda_build.Kernel(
 )
 
 
-def power_table(base: int, n: int, device, mont: bool = True) -> torch.Tensor:
-    """[base^0 .. base^{n-1}] mod r as an (8, n) tensor (host chain)."""
+#: K4's constants as ``csrc/ntt.cu`` defines them: the largest
+#: sub-transform of one pass (2^LMAX elements, held in shared memory),
+#: the sub-transforms a block holds side by side (COLS), and the most
+#: passes of any size up to 2^28.
+LMAX = 9
+COLS = 4
+MAX_PASSES = 4
+
+
+def ntt_plan(logn: int, lmax: int = LMAX) -> tuple:
+    """K4's split of log2 n into passes (``ntt_split`` in ``ntt.cu``):
+    the fewest parts of at most ``lmax`` bits, as equal as they can be,
+    the larger ones first."""
+    parts = max(1, -(-logn // lmax))
+    base, rem = divmod(logn, parts)
+    return tuple(base + (p < rem) for p in range(parts))
+
+
+def power_table(base: int, n: int, device) -> torch.Tensor:
+    """[base^0 .. base^{n-1}] mod r in Montgomery form, (8, n), built on
+    ``device`` by doubling: [b^0 .. b^{m-1}] times b^m gives the next m
+    powers, so ceil(log2 n) field products (K3 launches on the card)
+    instead of n host steps. The exact field gives the host chain's
+    values."""
     r = FR.modulus
-    base %= r
-    acc = (F.R_INT % r) if mont else 1
-    vals = []
-    for _ in range(n):
-        vals.append(acc)
-        acc = acc * base % r
-    return torch.from_numpy(F.ints_to_limbs(vals)).to(device)
+    steps = max(n - 1, 0).bit_length()
+    doubling = [pow(base, 1 << i, r) for i in range(steps)]
+    b_pows = F.from_ints(doubling, FR, device=device) if steps else None
+    out = F.one_mont(FR, (1,), device).contiguous()
+    for i in range(steps):
+        out = torch.cat([out, F.mont_mul(out[:, : n - (1 << i)], b_pows[:, i : i + 1], FR)], dim=1)
+    return out
 
 
 def bit_reverse_perm(n: int) -> np.ndarray:
@@ -129,6 +155,82 @@ def _transform_plain(a: torch.Tensor, table: torch.Tensor, rev: torch.Tensor, sc
         a[..., i0] = F._add_plain(u, v, FR)
         a[..., i1] = F._sub_plain(u, v, FR)
     return a
+
+
+def _transform_four_step_plain(a: torch.Tensor, table: torch.Tensor, scale=None, lmax: int = LMAX) -> torch.Tensor:
+    """The transform by K4's pass plan, for the tests (the kernel's index
+    math on the CPU). With n = L_0 * ... * L_{P-1} (:func:`ntt_plan`),
+    input index j = sum j_q A_q and output index k = sum k_q B_q, where
+    A_q = L_0 .. L_{q-1} and B_q = L_{q+1} .. L_{P-1}:
+
+      * pass 0 transforms digit P-1 (columns of stride A_{P-1}) and
+        stores each column as a row at sum_{q<P-1} j_q B_q: the only
+        transposing pass, from ``a`` to the output;
+      * pass p >= 1 transforms digit q = P-1-p in place, at stride B_q;
+      * each sub-transform of L_q elements is a radix-2 transform with
+        the roots w^(i n / L_q) of ``table``;
+      * the pass for digit q >= 1 multiplies its output k (column suffix
+        s) by w^(A_{q-1} j_{q-1} (k B_q + s)), the twiddle of the next
+        pass, read from ``table`` as -w^(e - n/2) for e >= n/2; the pass
+        for digit 0 multiplies by ``scale``.
+    """
+    n = a.shape[-1]
+    logn = n.bit_length() - 1
+    parts = ntt_plan(logn, lmax)
+    npass = len(parts)
+    sizes = [1 << p for p in parts]
+    log_a = [sum(parts[:q]) for q in range(npass)]
+    log_b = [sum(parts[q + 1 :]) for q in range(npass)]
+    x = a.reshape(F.NUM_LIMBS, -1, n)
+    batch = x.shape[1]
+
+    def power(e: torch.Tensor) -> torch.Tensor:
+        e = e % n
+        neg = e >= n // 2
+        w = table.index_select(-1, torch.where(neg, e - n // 2, e).flatten()).reshape(F.NUM_LIMBS, *e.shape)
+        return torch.where(neg.unsqueeze(0), F._neg_plain(w, FR), w)
+
+    def sub_transform(v: torch.Tensor, q: int) -> torch.Tensor:
+        size = sizes[q]
+        roots = table.index_select(-1, torch.arange(max(size // 2, 1), device=a.device) * (n // size))
+        return _transform_plain(v, roots, torch.from_numpy(bit_reverse_perm(size)).to(a.device))
+
+    def finish(y: torch.Tensor, q: int, exponent) -> torch.Tensor:
+        """The epilogue of the pass for digit q: twiddle or scale."""
+        if q >= 1:
+            return F._mont_mul_plain(y, power(exponent).unsqueeze(1), FR)
+        if scale is not None:
+            return F._mont_mul_plain(y, scale.reshape((F.NUM_LIMBS,) + (1,) * (y.ndim - 1)), FR)
+        return y
+
+    if npass == 1:
+        out = finish(sub_transform(x, 0), 0, None)
+        return out.reshape(a.shape)
+    # Pass 0: digit P-1, column col = sum_{q<P-1} j_q A_q, stored as a row.
+    q, size = npass - 1, sizes[-1]
+    ncol = n // size
+    cols = x.reshape(F.NUM_LIMBS, batch, size, ncol).transpose(-1, -2)
+    col = torch.arange(ncol, device=a.device)
+    k = torch.arange(size, device=a.device)
+    tw_mul = col & ~((1 << log_a[q - 1]) - 1)  # A_{q-1} j_{q-1}: j_{q-1} is col's top digit
+    y = finish(sub_transform(cols, q), q, tw_mul[:, None] * k[None, :])
+    row = sum(((col >> log_a[d]) & (sizes[d] - 1)) << log_b[d] for d in range(npass - 1))
+    out = torch.empty_like(x)
+    out[..., (row[:, None] + k[None, :]).flatten()] = y.reshape(F.NUM_LIMBS, batch, n)
+    # Passes 1 .. P-1: digit q in place at stride B_q.
+    for q in range(npass - 2, -1, -1):
+        size, stride = sizes[q], 1 << log_b[q]
+        v = out.reshape(F.NUM_LIMBS, batch, 1 << log_a[q], size, stride).transpose(-1, -2)
+        exponent = None
+        if q >= 1:
+            prefix = torch.arange(1 << log_a[q], device=a.device)
+            tw_mul = (prefix & (sizes[q - 1] - 1)) << log_a[q - 1]
+            k = torch.arange(size, device=a.device)
+            s = torch.arange(stride, device=a.device)
+            exponent = tw_mul[:, None, None] * (k[None, None, :] * stride + s[None, :, None])
+        y = finish(sub_transform(v, q), q, exponent)
+        out = y.transpose(-1, -2).reshape(F.NUM_LIMBS, batch, n)
+    return out.reshape(a.shape)
 
 
 def transform(a: torch.Tensor, table: torch.Tensor, domain: Domain, scale=None) -> torch.Tensor:

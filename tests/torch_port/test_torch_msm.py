@@ -141,6 +141,25 @@ def test_digit_stream_refuses_wide_windows():
         MK.digit_stream(sc, torch.zeros(2, dtype=torch.bool), 8)
 
 
+def test_window_width_two_is_refused():
+    """At c = 2, c * W = 254 < 255 bits and the top window's carry would
+    be lost (r - 1 carries): the digit stream and K1's wrapper refuse it
+    (and K1's C entry, which the card's tests reach)."""
+    pts, scalars = host_points(11, 12)
+    scalars[0] = R - 1
+    sc = F.from_ints(scalars, F.FR, to_mont=False)
+    assert 2 * M.num_windows(2) == 254 and all(c * M.num_windows(c) >= 255 for c in range(3, 8))
+    with pytest.raises(ValueError, match="3 <= c"):
+        MK.digit_stream(sc, torch.zeros(12, dtype=torch.bool), 2)
+    batch = M.affine_from_ints(pts)
+    with pytest.raises(ValueError, match="c >= 3"):
+        MK._accumulate_cuda(batch.x, batch.y, batch.inf, sc, 2)
+    with pytest.raises(ValueError, match="3 <= c"):
+        MK.accumulate_buckets(batch.x, batch.y, batch.inf, sc, 2)
+    src = (MK.cuda_build.CSRC / "msm_accum.cu").read_text()
+    assert "c < 3 || c > 7" in src
+
+
 @pytest.mark.parametrize("c", [4, 6])
 def test_plain_accumulation_matches_oracle(c):
     """Plain K1 per (window, bucket), in affine form, against host sums

@@ -134,19 +134,33 @@ def test_backend_without_card_raises():
         Backend()
 
 
-@pytest.mark.parametrize("field,value", [("scheme", "groth16"), ("proof_format", "expanded"),
-                                         ("curve", "bls12_381")])
+@pytest.mark.parametrize("field,value", [("scheme", "groth16"), ("proof_format", "expanded")])
 def test_config_refuses_what_is_not_ported(field, value):
     with pytest.raises(ValueError, match="unsupported"):
         Config(**{field: value}).validate()
 
 
+def test_bls12_381_proving_rejected(fixture_circuit):
+    """Config(curve="bls12_381") constructs, as in the JAX package, and
+    every proving operation raises BackendError (tests/test_plonk.py's
+    test of the same name)."""
+    circuit, values = fixture_circuit
+    b = Backend(Config(curve="bls12_381"), device="cpu")
+    with pytest.raises(BackendError, match="bn254-only"):
+        b.preprocess(circuit)
+    with pytest.raises(BackendError, match="bn254-only"):
+        b.prove_with_pk(circuit, values, b"")
+    with pytest.raises(BackendError, match="bn254-only"):
+        b.verify_with_vk(b"", values, circuit, b"")
+
+
 def test_port_imports_nothing_of_jax():
-    """No module of the port, and not chip_smoke.py, imports jax or the
-    JAX package (a plain text search, so no spelling slips through)."""
+    """No module of the port, and not chip_smoke.py or k4_compare.py,
+    imports jax or the JAX package (a plain text search, so no spelling
+    slips through)."""
     needles = (re.compile(r"\bimport jax\b|\bfrom jax\b"),
                re.compile(r"noir_backend_using_gnark_tpu\.|from noir_backend_using_gnark_tpu "))
-    files = sorted((ROOT / PORT).rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / PORT).rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "k4_compare.py"]
     assert len(files) > 20
     hits = [
         f"{path.relative_to(ROOT)}:{i}: {line.strip()}"
