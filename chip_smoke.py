@@ -29,10 +29,34 @@ Phases (any failure ends the run with a non-zero exit and no result):
      flipped proof byte must fail to verify, wall times of each phase,
      and the launch counters (every kernel must have run inside
      prove_with_pk);
-  5. each kernel timed at the main path's shapes beside its plain
+  5. ``gnark_srs``: the 2^17-point SRS through save_srs_gnark ->
+     load_srs_gnark (decompressed on the card), with an equal
+     srs_digest; the fixture's gnark-layout SRS and vk equal the golden
+     files;
+  6. ``cli_main_path``: the 2^16-gate circuit written out as a program
+     package (circuit_to_json, abi.json, Prover.toml, Verifier.toml) and
+     driven through the CLI (``cli.main``): execute, prove (which
+     preprocesses), prove again with the written pk.hex, verify, and a
+     flipped proof byte; wall seconds of parse, solve, preprocess,
+     prove and verify, and the launch counters of the second prove;
+  7. ``expanded``: the 2^16-gate circuit proved in the expanded layout
+     through Backend, verified, a flipped byte rejected, the launch
+     counters of that prove; the fixture's expanded proof equal to the
+     golden file; warm gnark and expanded proves timed in turns;
+  8. ``cli_programs``: every package of tests/programs/ through check,
+     compile, gates, execute, prove and verify (range_check's gates
+     exits 1, as in the JAX package); the package fixture of
+     tests/torch_port reproduces its golden target files; the three
+     negative probes exit 1;
+  9. each kernel timed at the main path's shapes beside its plain
      version and its bound, printed as one JSON ``kernels`` line (K4
      also at (3, 2^16) inverse, round 1's shape, with its launches per
-     call, and at 2^20 and 2^24, batch 1).
+     call, and at 2^20 and 2^24, batch 1), and the whole MSM (K1, the
+     weighted bucket reduction over K3, K2) at 2^17 points.
+
+Each path (phases 4, 6, 7 and 8) is driven with the launch counters set
+to 0 just before it and read just after, and every kernel must have run
+in it.
 
 The last line of standard output is the device line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -42,6 +66,7 @@ from __future__ import annotations
 
 import json
 import random
+import shutil
 import subprocess
 import sys
 import time
@@ -50,6 +75,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PKG = "noir_backend_using_gnark_tpu_torch"
 FIXTURES = ROOT / "tests" / "torch_port" / "fixtures"
+PROGRAMS = ROOT / "tests" / "programs"
 
 #: Main-path circuit: bench.py's chain with 1 public row + 65535 gates
 #: = 2^16 rows, so the domain is exactly 2^16 and the SRS 2^17 points.
@@ -270,6 +296,211 @@ def check_ntt_kernel(dev, gen) -> None:
                       "ok": True}), flush=True)
 
 
+def launched(before: dict, after: dict, path: str) -> dict:
+    """Launches per kernel between two counter reads; every kernel must
+    have run on ``path``."""
+    got = {k: after[k] - before[k] for k in after}
+    for name, count in got.items():
+        check(count > 0, f"kernel {name} was not launched on the {path} path")
+    return got
+
+
+def write_package(pkg: Path, circuit_json: str, abi: dict, prover: str, verifier: str) -> str:
+    """A program package: the ACIR, its abi and the two TOML files."""
+    if pkg.exists():
+        shutil.rmtree(pkg)
+    pkg.mkdir(parents=True)
+    (pkg / "circuit.acir.json").write_text(circuit_json)
+    (pkg / "abi.json").write_text(json.dumps(abi))
+    (pkg / "Prover.toml").write_text(prover)
+    (pkg / "Verifier.toml").write_text(verifier)
+    return str(pkg)
+
+
+def run_cli(cli, argv: list, want: int = 0, timings: dict | None = None) -> None:
+    rc = cli.main(argv, timings)
+    check(rc == want, f"cli {' '.join(argv[:2])} exited {rc}, not {want}")
+
+
+def flip_byte(path: Path, offset: int) -> None:
+    raw = bytearray.fromhex(path.read_text())
+    raw[offset] ^= 0x01
+    path.write_text(raw.hex())
+
+
+def phase_gnark_srs(srs, fixture_srs, smoke_dir: Path, dev) -> dict:
+    """save_srs_gnark -> load_srs_gnark of ``srs`` on ``dev``, and the
+    fixture's gnark-layout SRS and vk against the golden files."""
+    from noir_backend_using_gnark_tpu_torch import artifacts
+    from noir_backend_using_gnark_tpu_torch.formats import gnark
+
+    path = str(smoke_dir / "main_srs_gnark.hex")
+    t0 = time.perf_counter()
+    artifacts.save_srs_gnark(srs, path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = artifacts.load_srs_gnark(path, device=dev)
+    torch_sync(dev)
+    load_s = time.perf_counter() - t0
+    check(artifacts.srs_digest(back) == artifacts.srs_digest(srs), "gnark SRS round trip changed the digest")
+    check(all(bool((a == b).all()) for a, b in zip(back.g1_powers, srs.g1_powers)),
+          "gnark SRS round trip changed the G1 powers")
+    check((back.g2_gen, back.g2_alpha) == (srs.g2_gen, srs.g2_alpha), "gnark SRS round trip changed G2")
+    check(gnark.srs_to_gnark_bytes(fixture_srs) == (FIXTURES / "srs_gnark.bin").read_bytes(),
+          "the fixture's gnark-layout SRS differs from the golden file")
+    vk = artifacts.vk_from_bytes((FIXTURES / "vk.bin").read_bytes())
+    check(gnark.vk_to_gnark_bytes(vk) == (FIXTURES / "vk_gnark.bin").read_bytes(),
+          "the fixture's gnark-layout vk differs from the golden file")
+    return {"points": srs.size, "save_s": save_s, "load_s": load_s, "file_bytes": Path(path).stat().st_size}
+
+
+def phase_cli_main(cli, parse, circuit, values, x: int, srs_path: str, srs_size: int, seed: bytes,
+                   pkg: Path, device: str, want_proof: bytes | None) -> dict:
+    """The main-path circuit as a program package through the CLI. The
+    second prove reuses target/pk.hex, so all of its device work is
+    inside prove_with_pk; it runs between two reads of the counters."""
+    from noir_backend_using_gnark_tpu_torch import cuda_build
+    from noir_backend_using_gnark_tpu_torch.utils import bigint
+
+    t0 = time.perf_counter()
+    text = parse.circuit_to_json(circuit)
+    write_package(pkg, text, {"x": 1}, f'x = "{x}"\n', f'x = "{x}"\n')
+    write_s = time.perf_counter() - t0
+    flags = ["--srs-path", srs_path, "--srs-size", str(srs_size), "--seed", seed.hex(), "--device", device]
+    t_exec, t_prove, t_warm, t_verify = {}, {}, {}, {}
+    run_cli(cli, ["execute", str(pkg), *flags], timings=t_exec)
+    check((pkg / "target" / "witness.hex").read_text() == bigint.encode_felts(values),
+          "cli execute wrote another witness than the solver's")
+    t0 = time.perf_counter()
+    run_cli(cli, ["prove", str(pkg), *flags], timings=t_prove)
+    prove_wall = time.perf_counter() - t0
+    proof = (pkg / "target" / "proof.hex").read_text()
+    if want_proof is not None:
+        check(bytes.fromhex(proof) == want_proof, "cli prove gave other bytes than Backend with the same seed")
+    before = cuda_build.counts()
+    t0 = time.perf_counter()
+    run_cli(cli, ["prove", str(pkg), *flags], timings=t_warm)
+    warm_wall = time.perf_counter() - t0
+    after = cuda_build.counts()
+    check((pkg / "target" / "proof.hex").read_text() == proof, "a second cli prove gave other bytes")
+    run_cli(cli, ["verify", str(pkg), *flags], timings=t_verify)
+    flip_byte(pkg / "target" / "proof.hex", -1)
+    run_cli(cli, ["verify", str(pkg), *flags], want=1)
+    return {
+        "acir_json_bytes": len(text), "write_package_s": write_s,
+        "execute": {k: t_exec[k] for k in ("parse", "solve")},
+        "prove_first": {k: t_prove.get(k) for k in ("parse", "solve", "srs", "preprocess", "prove")},
+        "prove_first_wall_s": prove_wall,
+        "prove_warm": {k: t_warm.get(k) for k in ("parse", "solve", "prove", "round1", "round2", "round3",
+                                                   "round45")},
+        "prove_warm_wall_s": warm_wall,
+        "verify": {k: t_verify.get(k) for k in ("parse", "verify")},
+        "counts": (before, after),
+    }
+
+
+def phase_expanded(api, config, circuit, values, pk_b: bytes, srs_path: str, srs_size: int, seed: bytes,
+                   device: str, fixture) -> dict:
+    """The expanded layout through Backend at the main path's size, and
+    the fixture's expanded proof against the golden file."""
+    from noir_backend_using_gnark_tpu_torch import cuda_build
+
+    def backend(fmt: str, path=srs_path, size=srs_size, s=seed):
+        return api.Backend(config.Config(srs_path=path, srs_size=size, prover_seed=s, proof_format=fmt),
+                           device=device)
+
+    exp, gnark = backend("expanded"), backend("gnark")
+    before = cuda_build.counts()
+    t0 = time.perf_counter()
+    proof = exp.prove_with_pk(circuit, values, pk_b)
+    first_s = time.perf_counter() - t0
+    after = cuda_build.counts()
+    check(proof[:8] == b"NTPUPRF1", "the expanded prove did not write the NTPUPRF1 container")
+    t0 = time.perf_counter()
+    ok = exp.verify_with_vk(proof, values, circuit, fixture["main_vk"])
+    verify_s = time.perf_counter() - t0
+    check(ok, "the expanded 2^16-gate proof does not verify")
+    bad = bytearray(proof)
+    bad[-1] ^= 0x01
+    check(not exp.verify_with_vk(bytes(bad), values, circuit, fixture["main_vk"]),
+          "a flipped expanded proof byte still verifies")
+    # Warm proves of both layouts in turns: gnark, expanded, expanded, gnark.
+    warm = {"gnark": [], "expanded": []}
+    for fmt, b in (("gnark", gnark), ("expanded", exp), ("expanded", exp), ("gnark", gnark)):
+        t0 = time.perf_counter()
+        out = b.prove_with_pk(circuit, values, pk_b)
+        warm[fmt].append(time.perf_counter() - t0)
+        check(out == (proof if fmt == "expanded" else fixture["main_proof"]), f"a warm {fmt} prove gave other bytes")
+    golden = backend("expanded", fixture["srs_path"], fixture["srs_size"], fixture["seed"])
+    check(golden.prove_with_pk(fixture["circuit"], fixture["values"], fixture["pk"]) == fixture["proof_expanded"],
+          "the fixture's expanded proof differs from the golden file")
+    check(golden.verify_with_vk(fixture["proof_expanded"], fixture["values"], fixture["circuit"], fixture["vk"]),
+          "the golden expanded proof does not verify")
+    return {"proof_bytes": len(proof), "first_prove_s": first_s, "verify_s": verify_s,
+            "rounds_s": {k: exp.timings.get(k) for k in ("round1", "round2", "round3", "round45")},
+            "warm_prove_s": warm, "counts": (before, after)}
+
+
+def phase_cli_programs(cli, work: Path, device: str, meta: dict) -> dict:
+    """Every package of tests/programs/ through the whole CLI flow; the
+    package fixture's golden target files; the negative probes."""
+    from noir_backend_using_gnark_tpu_torch import artifacts, cuda_build
+    from noir_backend_using_gnark_tpu_torch.kzg import kzg
+
+    pkg_meta = meta["package"]
+    if work.exists():
+        shutil.rmtree(work)
+    work.mkdir(parents=True)
+    # One SRS for every package: the largest domain is 256 rows.
+    srs_path = str(work / "srs.hex")
+    artifacts.save_srs(kzg.generate_srs(512, int(pkg_meta["alpha"], 16), device), srs_path)
+    flags = ["--srs-path", srs_path, "--srs-size", "512", "--seed", pkg_meta["seed"], "--device", device]
+    per_package = {}
+    before = cuda_build.counts()
+    for pkg in sorted(p for p in PROGRAMS.iterdir() if p.is_dir()):
+        dest = work / pkg.name
+        shutil.copytree(pkg, dest)
+        t0 = time.perf_counter()
+        for command in ("check", "compile", "gates", "execute", "prove", "verify"):
+            want = 1 if (command, pkg.name) == ("gates", "range_check") else 0
+            run_cli(cli, [command, str(dest), *flags], want=want)
+        per_package[pkg.name] = time.perf_counter() - t0
+    after = cuda_build.counts()
+
+    # The package fixture: its SRS, seed and golden target files.
+    name = Path(pkg_meta["program"]).name
+    golden_dir = FIXTURES / f"pkg_{name}"
+    fix_srs = str(work / "fixture_srs.hex")
+    artifacts.save_srs(kzg.generate_srs(pkg_meta["srs_size"], int(pkg_meta["alpha"], 16), device), fix_srs)
+    fix_flags = ["--srs-path", fix_srs, "--srs-size", str(pkg_meta["srs_size"]), "--seed", pkg_meta["seed"],
+                 "--device", device]
+    dest = work / "golden" / name
+    shutil.copytree(PROGRAMS / name, dest)
+    for command in ("execute", "prove", "verify"):
+        run_cli(cli, [command, str(dest), *fix_flags])
+    for f in ("witness", "pk", "vk", "proof"):
+        check((dest / "target" / f"{f}.hex").read_text() == (golden_dir / f"{f}.hex").read_text(),
+              f"cli {f}.hex of {name} differs from the JAX-written golden")
+
+    # The three negative probes.
+    flip_byte(dest / "target" / "proof.hex", 40)
+    run_cli(cli, ["verify", str(dest), *fix_flags], want=1)
+    (dest / "target" / "proof.hex").write_text((golden_dir / "proof.hex").read_text())
+    (dest / "Verifier.toml").write_text('y = "3"\n')
+    run_cli(cli, ["verify", str(dest), *fix_flags], want=1)
+    (dest / "Prover.toml").write_text('x = "2"\ny = "2"\n')
+    run_cli(cli, ["execute", str(dest), *fix_flags], want=1)
+    return {"packages": len(per_package), "seconds_per_package": per_package, "golden_bytes_equal": True,
+            "probes_exit_1": 3, "counts": (before, after)}
+
+
+def torch_sync(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
 def main() -> int:
     import torch
 
@@ -279,8 +510,8 @@ def main() -> int:
         fail(f"{PKG}/csrc not found next to chip_smoke.py: run it from a checkout of the repo")
     sys.path.insert(0, str(ROOT))
 
-    from noir_backend_using_gnark_tpu_torch import api, artifacts, config, cuda_build
-    from noir_backend_using_gnark_tpu_torch.acir import builder, solver
+    from noir_backend_using_gnark_tpu_torch import api, artifacts, cli, config, cuda_build
+    from noir_backend_using_gnark_tpu_torch.acir import builder, parse, solver
     from noir_backend_using_gnark_tpu_torch.kzg import kzg
     from noir_backend_using_gnark_tpu_torch.ops import curve as C
     from noir_backend_using_gnark_tpu_torch.ops import field as F
@@ -356,6 +587,9 @@ def main() -> int:
     check(backend.verify_with_vk(golden["proof"], values, circuit, golden["vk"]), "golden proof does not verify")
     check(backend.prove_with_meta(circuit, values) == golden["proof"], "prove_with_meta differs from the golden proof")
     print(json.dumps({"phase": "golden", "ok": True, "seconds": time.perf_counter() - t0}), flush=True)
+    fixture = {"circuit": circuit, "values": values, "srs": srs, "srs_path": path, "srs_size": meta["srs_size"],
+               "seed": bytes.fromhex(meta["prover_seed"]), "pk": golden["pk"], "vk": golden["vk"],
+               "proof_expanded": (FIXTURES / "proof_expanded.bin").read_bytes()}
 
     # ---- 4. the main path at 2^16 gates --------------------------------
     # Drop the tables the checks built, so that the first prove builds
@@ -390,12 +624,14 @@ def main() -> int:
     ok = backend.verify_with_vk(proof_b, values, circuit, vk_b)
     launches = cuda_build.counts()
     check(ok, "the 2^16-gate proof does not verify")
+    t_main["verify_accepted"] = backend.timings["verify"]
     bad = bytearray(proof_b)
     bad[-1] ^= 0x01
     check(not backend.verify_with_vk(bytes(bad), values, circuit, vk_b), "a flipped proof byte still verifies")
-    in_prove = {k: after_prove[k] - after_pre[k] for k in launches}
-    for name, count in in_prove.items():
-        check(count > 0, f"kernel {name} was not launched inside prove_with_pk")
+    # The flipped z(zeta*omega) fails the scalar identity before the pairings.
+    t_main["verify_rejected"] = backend.timings["verify"]
+    in_prove = launched(after_pre, after_prove, "main (inside prove_with_pk)")
+    launched(dict.fromkeys(launches, 0), launches, "main")
     pk_n = artifacts.pk_from_bytes(pk_b).n
     check(pk_n == 1 << 16, f"main-path domain is {pk_n}, not 2^16")
     t_main.update({f"backend_{k}": v for k, v in backend.timings.items()})
@@ -429,6 +665,37 @@ def main() -> int:
                       "device_idle_share": 1 - busy_ms / 1e3 / prof_wall,
                       "top_device_ms": [[k[:60], ms, n] for k, ms, n in by_kernel[:12]]}), flush=True)
 
+    # ---- 5-8. the gnark SRS layout, the CLI, the expanded layout --------
+    fixture.update(main_vk=vk_b, main_proof=proof_b)
+    by_path = {"main_path": launches}
+    result = phase_gnark_srs(srs, fixture["srs"], smoke_dir, dev)
+    print(json.dumps({"phase": "gnark_srs", "ok": True, **result}), flush=True)
+
+    cuda_build.reset_counts()
+    result = phase_cli_main(cli, parse, circuit, values, MAIN_X, path, srs_size, seed, smoke_dir / "chain_pkg",
+                            "cuda", proof_b)
+    before, after = result.pop("counts")
+    by_path["cli_main_path"] = cuda_build.counts()
+    result["launches_in_second_prove"] = launched(before, after, "cli_main_path (second prove)")
+    print(json.dumps({"phase": "cli_main_path", "ok": True, "gates": MAIN_ROWS - 2, **result,
+                      "launches": by_path["cli_main_path"]}), flush=True)
+
+    cuda_build.reset_counts()
+    result = phase_expanded(api, config, circuit, values, pk_b, path, srs_size, seed, "cuda", fixture)
+    before, after = result.pop("counts")
+    by_path["expanded"] = cuda_build.counts()
+    result["launches_in_prove_with_pk"] = launched(before, after, "expanded (inside prove_with_pk)")
+    print(json.dumps({"phase": "expanded", "ok": True, "gates": MAIN_ROWS - 2, "verified": True,
+                      "golden_equal": True, **result, "launches": by_path["expanded"]}), flush=True)
+
+    cuda_build.reset_counts()
+    result = phase_cli_programs(cli, smoke_dir / "programs", "cuda", meta)
+    before, after = result.pop("counts")
+    by_path["cli_programs"] = cuda_build.counts()
+    launched(before, after, "cli_programs")
+    print(json.dumps({"phase": "cli_programs", "ok": True, **result, "launches": by_path["cli_programs"]}),
+          flush=True)
+
     def kernel_profile(fn, symbols, calls: int):
         """Device ms and kernel launches per call of the named kernels,
         from the profiler (ms None when it reports no device time). The
@@ -450,7 +717,7 @@ def main() -> int:
     def device_ms(fn, symbols, calls: int):
         return kernel_profile(fn, symbols, calls)[0]
 
-    # ---- 5. kernel times at the main path's shapes -----------------------
+    # ---- 9. kernel times at the main path's shapes -----------------------
     rows = []
     n4 = 1 << 18  # the quotient domain of round 3
     a = rand_words(gen, n4)
@@ -538,10 +805,34 @@ def main() -> int:
                      bound_ms=bd, bound_by=by, device_ms=join_ms, dependent_products_per_join=chain,
                      ns_per_dependent_product=join_ms * 1e6 / chain if join_ms else None))
 
-    name_of = {"K3": "field", "K4": "ntt", "K1": "msm_accum", "K2": "msm_join"}
+    # The whole MSM (msm_kernel_pallas's counterpart): K1, the weighted
+    # bucket reduction (plain log-depth scans over K3), K2. Its plain
+    # version runs K1 and K2 plain (the reduction is the same code). The
+    # bound adds to K1's work a running-sum reduction (2 B complete
+    # additions of 16 products per window) and K2's Horner chain.
+    ms = cuda_ms(lambda: M.msm(pts, sc, 6), 10)
+    t0 = time.perf_counter()
+    want = MK._join_plain(M._weighted_bucket_reduce(MK._accumulate_plain(pts.x, pts.y, digits, 6)), 6)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    got = M.msm(pts, sc, 6)
+    check(affine_equal(got.map(lambda a: a.reshape(8, 1)), want.map(lambda a: a.reshape(8, 1))),
+          "the whole MSM disagrees with its plain version")
+    imads = IMAD_PER_MONT_MUL * (11 * nonzero + 16 * 2 * MK.num_buckets(6) * w_count
+                                 + 6 * (w_count - 1) * 7 + w_count * 16)
+    bd, by = bound_ms((64 + 32 + 1) * npts + 96, imads)  # x, y, scalar, inf in; one point out
+    rows.append(dict(name="msm_whole", kernel="K1+K2", shape=f"{npts} points, c=6: K1, weighted reduce, K2",
+                     route="cuda", source=f"{PKG}/ops/msm.py (csrc/msm_accum.cu, csrc/field.cu, csrc/msm_join.cu)",
+                     replaces="noir_backend_using_gnark_tpu/ops/msm_pallas.py:735", ms=ms, plain_ms=plain,
+                     bound_ms=bd, bound_by=by,
+                     device_ms=device_ms(lambda: M.msm(pts, sc, 6), K1_SYMBOLS + K2_SYMBOLS + ["field_kernel"], 10)))
+
+    # One launch of K1 per MSM, so K1's count is the whole MSM's.
+    name_of = {"K3": "field", "K4": "ntt", "K1": "msm_accum", "K2": "msm_join", "K1+K2": "msm_accum"}
     for row in rows:
         row["launches"] = launches[name_of[row["kernel"]]]
         row["launches_in_prove"] = in_prove[name_of[row["kernel"]]]
+        row["launches_by_path"] = {path: c[name_of[row["kernel"]]] for path, c in by_path.items()}
         row["max_abs_err"] = 0
         row["library_ms"] = None
     print(json.dumps({"card": smi}), flush=True)

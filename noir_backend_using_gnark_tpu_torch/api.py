@@ -1,9 +1,12 @@
 """Public backend API on PyTorch.
 
 Counterpart of ``noir_backend_using_gnark_tpu/api.py``: the reference's
-PLONK proving surface (``preprocess``, ``prove_with_pk``,
-``verify_with_vk``, ``prove_with_meta``), with host types (ints, bytes)
-at the boundary and the same artifact bytes as the JAX package.
+PLONK surface (``np_language``, ``black_box_function_supported``,
+``get_exact_circuit_size``, ``preprocess``, ``prove_with_pk``,
+``verify_with_vk``, ``prove_with_meta``, ``verify_from_cs``) and the
+witness side (``solve``, ``solve_black_box_function_call``), with host
+types (ints, bytes) at the boundary and the same artifact bytes as the
+JAX package, in either proof layout (``config.proof_format``).
 
 The device work runs on ``cuda`` unless the caller passes
 ``device="cpu"``; without a card, ``Backend()`` raises instead of
@@ -17,12 +20,12 @@ import time
 import torch
 
 from . import artifacts
-from .acir import lowering, model
+from .acir import blackbox, lowering, model, solver
 from .config import DEFAULT, Config
 from .errors import BackendError, ProvingError
-from .plonk import gnark_protocol
 from .plonk import prove as plonk_prove
 from .plonk import setup as plonk_setup
+from .plonk import verify as plonk_verify
 from .utils import bigint
 
 R = bigint.FR_MODULUS
@@ -48,6 +51,20 @@ class Backend:
         self.device = resolve_device(device)
         self._srs = None
         self.timings: dict = {}
+
+    # -- introspection ---------------------------------------------------
+
+    def np_language(self) -> dict:
+        """PLONKCSat width 3 (backend.rs:36-38)."""
+        return {"PLONKCSat": {"width": 3}}
+
+    def black_box_function_supported(self, func: model.BlackBoxFunc) -> bool:
+        """The reference's support matrix (backend.rs:40-56)."""
+        return model.SUPPORTED_BLACK_BOX.get(func, False)
+
+    def get_exact_circuit_size(self, circuit: model.Circuit) -> int:
+        """#opcodes + per-arith (mul_terms + 1) (wrapper mod.rs:56-73)."""
+        return circuit.circuit_size()
 
     # -- SRS -------------------------------------------------------------
 
@@ -104,7 +121,8 @@ class Backend:
             )
         assignment = lowering.build_assignment(pc, [v % R for v in values])
         rounds: dict = {}
-        proof = plonk_prove.prove(pk, assignment, self.config.prover_seed, timings=rounds)
+        proof = plonk_prove.prove(pk, assignment, self.config.prover_seed, timings=rounds,
+                                  protocol=self.config.proof_format)
         out = artifacts.proof_to_bytes(proof)
         self.timings.update(rounds)
         self.timings["prove"] = time.perf_counter() - t0
@@ -113,7 +131,9 @@ class Backend:
     def verify_with_vk(self, proof: bytes, public_inputs: list, circuit: model.Circuit,
                        verification_key: bytes) -> bool:
         """Proof bytes + dense public-input values + vk blob -> bool
-        (backend.rs:96-106). Host-only: O(1) points and two pairings."""
+        (backend.rs:96-106). Host-only: O(1) points and two pairings.
+        The proof's layout is read from its bytes (plonk/verify.py
+        dispatches on it), whatever ``config.proof_format`` says."""
         self._require_bn254("verify_with_vk")
         t0 = time.perf_counter()
         pc = lowering.lower_to_plonk(circuit)
@@ -123,7 +143,7 @@ class Backend:
             p = artifacts.proof_from_bytes(proof)
         except BackendError:
             return False
-        ok = gnark_protocol.verify(vk, p, publics)
+        ok = plonk_verify.verify(vk, p, publics)
         self.timings["verify"] = time.perf_counter() - t0
         return ok
 
@@ -131,6 +151,24 @@ class Backend:
         """Setup and prove in one call (backend.rs:58-66)."""
         pk_bytes, _ = self.preprocess(circuit)
         return self.prove_with_pk(circuit, values, pk_bytes)
+
+    def verify_from_cs(self, proof: bytes, public_inputs: list, circuit: model.Circuit) -> bool:
+        """Setup and verify in one call (backend.rs:68-75)."""
+        _, vk_bytes = self.preprocess(circuit)
+        return self.verify_with_vk(proof, public_inputs, circuit, vk_bytes)
+
+    # -- witness generation ----------------------------------------------
+
+    def solve(self, circuit: model.Circuit, initial_witness: dict) -> dict:
+        """The whole pwg loop on the host (the reference only implements
+        the black-box part, backend.rs:109-170; acvm drives the rest)."""
+        t0 = time.perf_counter()
+        out = solver.solve(circuit, initial_witness)
+        self.timings["solve"] = time.perf_counter() - t0
+        return out
+
+    def solve_black_box_function_call(self, witness: dict, func_call: model.BlackBoxFuncCall) -> None:
+        blackbox.solve_black_box(func_call, witness)
 
     @staticmethod
     def _extract_publics(pc: lowering.PlonkCircuit, public_inputs: list) -> list:

@@ -7,11 +7,14 @@ between the two packages:
   * G1 points: gnark-crypto's flag scheme (top two bits of byte 0: 00
     uncompressed, 10/11 compressed with the smallest/largest y, 01
     infinity);
-  * the SRS container ``NTPUSRS1``; proving keys ``NTPUPK_2`` (polynomials
-    stored as the JAX package's (16, n) 16-bit limb planes) and
+  * the SRS container ``NTPUSRS1``, and the gnark-crypto SRS layout
+    (``save_srs_gnark`` / ``load_srs_gnark``, formats/gnark.py);
+  * proving keys ``NTPUPK_2`` (polynomials stored as the JAX package's
+    (16, n) 16-bit limb planes), and the legacy ``NTPUPK_1`` (the same
+    without the SRS fingerprint), which is read but not written;
     verifying keys ``NTPUVK_1``;
-  * proofs: raw gnark v0.8 ``WriteTo`` blobs (formats/gnark.py). The
-    expanded layout of the JAX package is not part of this port yet.
+  * proofs: raw gnark v0.8 ``WriteTo`` blobs (formats/gnark.py), or the
+    expanded layout (plonk/keys.Proof) in the ``NTPUPRF1`` container.
 
 The SRS codec is vectorized: compression packs bytes with numpy, and
 decompression takes every square root in one batched exponentiation on
@@ -28,7 +31,7 @@ import numpy as np
 import torch
 
 from . import convert
-from .errors import DeserializeKeyError, DeserializeProofError, SerializeKeysError
+from .errors import DeserializeKeyError, DeserializeProofError, SerializeKeysError, SerializeProofError
 from .utils import bigint
 
 Q = bigint.FQ_MODULUS
@@ -257,6 +260,31 @@ def try_load_srs(size: int, path: str | None = None, alpha: int | None = None, d
     return srs
 
 
+def save_srs_gnark(srs, path: str) -> str:
+    """Write the SRS in the gnark-crypto ``kzg.SRS.WriteTo`` layout,
+    hex-encoded like the reference cache (backend/common.go:86-125)."""
+    from .formats import gnark as gnark_fmt
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        f.write(gnark_fmt.srs_to_gnark_bytes(srs).hex())
+    return path
+
+
+def load_srs_gnark(path: str, device="cpu"):
+    """Read a gnark-layout ``srs.hex`` (see :func:`save_srs_gnark`); the
+    G1 powers are decompressed on ``device`` in one batch."""
+    from .formats import gnark as gnark_fmt
+
+    with open(path) as f:
+        text = f.read().strip()
+    try:
+        data = bytes.fromhex(text)
+    except ValueError as e:
+        raise DeserializeKeyError(f"gnark SRS: {e}") from e
+    return gnark_fmt.srs_from_gnark_bytes(data, device)
+
+
 def srs_digest(srs) -> bytes:
     """8-byte fingerprint of an SRS: hash of ([alpha]G1, size)."""
     pts = srs.g1_ints(2)
@@ -273,6 +301,7 @@ def srs_digest(srs) -> bytes:
 
 PROOF_MAGIC = b"NTPUPRF1"
 VK_MAGIC = b"NTPUVK_1"
+PK_MAGIC = b"NTPUPK_1"  # legacy (no SRS fingerprint), still readable
 PK_MAGIC_V2 = b"NTPUPK_2"
 
 
@@ -281,18 +310,55 @@ def _pack_felt(v: int) -> bytes:
 
 
 def proof_to_bytes(proof) -> bytes:
-    """A gnark-protocol proof as its raw gnark v0.8 ``WriteTo`` blob."""
+    """A gnark-protocol proof as its raw gnark v0.8 ``WriteTo`` blob; an
+    expanded proof in the ``NTPUPRF1`` container: the seven commitments,
+    ``u32 BE count`` and the zeta evaluations, z(zeta*omega), then the
+    two opening proofs."""
     from .formats import gnark as gnark_fmt
+    from .plonk.keys import Proof
 
-    return gnark_fmt.proof_to_gnark_bytes(proof)
+    if isinstance(proof, gnark_fmt.GnarkProof):
+        return gnark_fmt.proof_to_gnark_bytes(proof)
+    if not isinstance(proof, Proof):
+        raise SerializeProofError(f"not a proof: {type(proof).__name__}")
+    out = [PROOF_MAGIC]
+    out.extend(g1_compress(pt) for pt in (proof.a, proof.b, proof.c, proof.z, proof.t0, proof.t1, proof.t2))
+    out.append(struct.pack(">I", len(proof.evals)))
+    out.extend(_pack_felt(v) for v in proof.evals)
+    out.append(_pack_felt(proof.z_omega))
+    out.append(g1_compress(proof.w_zeta))
+    out.append(g1_compress(proof.w_zeta_omega))
+    return b"".join(out)
 
 
 def proof_from_bytes(data: bytes):
+    """Either layout: the ``NTPUPRF1`` magic marks an expanded proof;
+    anything else is parsed as a raw gnark v0.8 blob."""
     from .formats import gnark as gnark_fmt
+    from .plonk.keys import Proof
 
-    if data[:8] == PROOF_MAGIC:
-        raise DeserializeProofError("the expanded proof layout is not supported by this package")
-    return gnark_fmt.proof_from_gnark_bytes(data)
+    if data[:8] != PROOF_MAGIC:
+        return gnark_fmt.proof_from_gnark_bytes(data)
+    try:
+        off = 8
+        pts = []
+        for _ in range(7):
+            pts.append(g1_decompress(data[off : off + 32]))
+            off += 32
+        (ne,) = struct.unpack(">I", data[off : off + 4])
+        off += 4
+        evals = []
+        for _ in range(ne):
+            evals.append(int.from_bytes(data[off : off + 32], "big") % R)
+            off += 32
+        z_omega = int.from_bytes(data[off : off + 32], "big") % R
+        w_zeta = g1_decompress(data[off + 32 : off + 64])
+        w_zeta_omega = g1_decompress(data[off + 64 : off + 96])
+        a, b, c, z, t0, t1, t2 = pts
+        return Proof(a=a, b=b, c=c, z=z, t0=t0, t1=t1, t2=t2, evals=evals, z_omega=z_omega,
+                     w_zeta=w_zeta, w_zeta_omega=w_zeta_omega)
+    except (ValueError, struct.error, IndexError) as e:
+        raise DeserializeProofError(str(e)) from e
 
 
 def vk_to_bytes(vk) -> bytes:
@@ -361,12 +427,17 @@ def pk_to_bytes(pk) -> bytes:
 
 
 def pk_from_bytes(data: bytes, srs=None, device="cpu"):
+    """``NTPUPK_2``, or the legacy ``NTPUPK_1`` (no fingerprint: the key's
+    ``srs_fingerprint`` is None and is not checked)."""
     from .plonk.keys import ProvingKey
 
     try:
-        if data[:8] != PK_MAGIC_V2:
+        if data[:8] == PK_MAGIC_V2:
+            fp, off = data[8:16], 16
+        elif data[:8] == PK_MAGIC:
+            fp, off = None, 8
+        else:
             raise ValueError("bad pk magic")
-        fp, off = data[8:16], 16
         n, nb_public, nb_vars, k1, k2 = struct.unpack(">QIIII", data[off : off + 24])
         off += 24
         wires = []

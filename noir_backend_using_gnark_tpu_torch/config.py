@@ -1,12 +1,12 @@
 """Runtime configuration.
 
 Counterpart of ``noir_backend_using_gnark_tpu/config.py`` restricted to
-what this port runs today: PLONK over BN254 in the gnark v0.8 proof
-format, on one device. ``curve="bls12_381"`` is accepted as the JAX
-package accepts it, and proving with it raises in ``api.Backend``. The
-other values the JAX package accepts (Groth16, the expanded proof
-layout, a device mesh) are refused by :meth:`Config.validate` rather
-than ignored.
+what this port runs today: PLONK over BN254 on one device, in the gnark
+v0.8 proof format or the expanded layout. ``curve="bls12_381"`` is
+accepted as the JAX package accepts it, and proving with it raises in
+``api.Backend``. The other values the JAX package accepts (Groth16, a
+device mesh) are refused by :meth:`Config.validate` rather than
+ignored.
 """
 
 from __future__ import annotations
@@ -19,8 +19,9 @@ from typing import Optional
 class Config:
     curve: str = "bn254"
     scheme: str = "plonk"
-    # gnark v0.8 linearized openings + gnark transcript, serialized as
-    # raw gnark WriteTo blobs (the reference's artifact format).
+    # "gnark": gnark v0.8 linearized openings + gnark transcript,
+    # serialized as raw gnark WriteTo blobs (the reference's artifact
+    # format); "expanded": the 15-opening layout in the NTPUPRF1 container.
     proof_format: str = "gnark"
     # SRS cache (the reference's $XDG_CONFIG/noir-lang/srs.hex).
     srs_path: Optional[str] = None
@@ -36,10 +37,8 @@ class Config:
         # operations of api.Backend raise BackendError for it (bn254-only).
         if self.scheme != "plonk":
             raise ValueError(f"unsupported scheme {self.scheme!r}: this port has no Groth16 yet")
-        if self.proof_format != "gnark":
-            raise ValueError(
-                f"unsupported proof_format {self.proof_format!r}: this port emits the gnark format only"
-            )
+        if self.proof_format not in ("gnark", "expanded"):
+            raise ValueError(f"unknown proof_format {self.proof_format!r}")
         return self
 
 

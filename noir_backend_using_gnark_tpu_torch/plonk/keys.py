@@ -77,5 +77,32 @@ class ProvingKey:
     vk: VerifyingKey = None
     srs: object = None  # kzg.SRS
     # 8-byte fingerprint of the SRS this pk was built against (set by
-    # artifacts.pk_from_bytes for v2 blobs; None = legacy/unknown).
+    # artifacts.pk_from_bytes for v2 blobs; None for a legacy NTPUPK_1 blob).
     srs_fingerprint: Optional[bytes] = None
+
+
+@dataclass
+class Proof:
+    """The expanded PLONK layout: selector and sigma openings are
+    included, so the verifier checks the whole identity numerically at
+    zeta (no linearization polynomial). All commitments are host affine
+    int points (or None)."""
+
+    a: object
+    b: object
+    c: object
+    z: object
+    t0: object
+    t1: object
+    t2: object
+    # Evaluations at zeta (ints), in ZETA_OPENING_LABELS order.
+    evals: list
+    z_omega: int  # z(zeta * omega)
+    w_zeta: object  # batched opening proof at zeta
+    w_zeta_omega: object  # opening proof for z at zeta*omega
+
+
+#: Fixed order of the batched zeta opening (prover and verifier agree).
+ZETA_OPENING_LABELS = (
+    "a", "b", "c", "z", "s1", "s2", "s3", "ql", "qr", "qo", "qm", "qc", "t0", "t1", "t2",
+)

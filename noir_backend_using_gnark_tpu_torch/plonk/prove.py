@@ -1,14 +1,21 @@
-"""PLONK prover (gnark v0.8 protocol) on torch tensors.
+"""PLONK prover on torch tensors, in both proof layouts.
 
-Counterpart of ``noir_backend_using_gnark_tpu/plonk/prove.py`` with
-``protocol="gnark"``: every polynomial-sized step runs on the proving
-key's device (NTTs through kernel K4, commitments through K1 and K2,
-all field algebra through K3); the host does O(1) work: transcript
-hashing and a few scalar field operations.
+Counterpart of ``noir_backend_using_gnark_tpu/plonk/prove.py``: every
+polynomial-sized step runs on the proving key's device (NTTs through
+kernel K4, commitments through K1 and K2, all field algebra through
+K3); the host does O(1) work: transcript hashing and a few scalar field
+operations. Rounds 1-3 are shared; the protocols differ in the
+transcript and in rounds 4-5:
+
+  * ``"gnark"``: gnark v0.8's transcript and linearized openings
+    (gnark_protocol.py), a :class:`..formats.gnark.GnarkProof`;
+  * ``"expanded"``: the SHA-256 transcript of transcript.py and the
+    15 openings of ``keys.ZETA_OPENING_LABELS``, a :class:`keys.Proof`.
 
 The blinding values are SHA-256 of the seed and a counter, drawn in the
 same order as the JAX package (three wires two each, then three for
-z), so a seed gives the same proof bytes in both packages.
+z; both protocols draw the same nine), so a seed gives the same proof
+bytes in both packages.
 """
 
 from __future__ import annotations
@@ -21,7 +28,6 @@ import numpy as np
 import torch
 
 from ..errors import ProvingError
-from ..formats.gnark import GnarkProof
 from ..kzg import kzg
 from ..ops import field as F
 from ..ops import ntt as N
@@ -29,8 +35,9 @@ from ..ops import poly as P
 from ..ops import scan_utils
 from ..utils import bigint
 from . import gnark_protocol as GP
-from .keys import ProvingKey
+from .keys import ZETA_OPENING_LABELS, Proof, ProvingKey
 from .setup import K1, K2
+from .transcript import expanded_transcript
 
 FR = F.FR
 R = bigint.FR_MODULUS
@@ -157,17 +164,20 @@ def _coset_evals(coeffs_list, big_n: int, domain4: N.Domain) -> torch.Tensor:
 
 
 def prove(pk: ProvingKey, assignment_ints: list, rng_seed: bytes | None = None,
-          timings: dict | None = None) -> GnarkProof:
-    """A gnark-protocol PLONK proof for the cs-variable assignment.
+          timings: dict | None = None, protocol: str = "gnark"):
+    """A PLONK proof for the cs-variable assignment.
 
     ``assignment_ints``: host ints, publics first (lowering order).
     ``rng_seed``: 32 bytes for deterministic blinding (None draws fresh
     randomness). ``timings``: when given, receives the wall seconds of
     each round (rounds end on a commitment readback, so the times are
-    complete).
+    complete). ``protocol``: ``"gnark"`` (a GnarkProof) or
+    ``"expanded"`` (a keys.Proof).
     """
+    if protocol not in ("gnark", "expanded"):
+        raise ProvingError(f"unknown proof protocol {protocol!r}")
     if pk.vk is None:
-        raise ProvingError("gnark protocol requires pk.vk (public data binding)")
+        raise ProvingError(f"{protocol} protocol requires pk.vk (public data binding)")
     n = pk.n
     domain = N.Domain.get(n)
     big_n = 4 * n
@@ -204,10 +214,17 @@ def prove(pk: ProvingKey, assignment_ints: list, rng_seed: bytes | None = None,
     com_a, com_b, com_c = commit_many([a_c, b_c, c_c])
     marks["round1"] = time.perf_counter()
 
-    gts = GP.GnarkTranscript(("gamma", "beta", "alpha", "zeta"))
-    GP.bind_public_data(gts, "gamma", pk.vk, publics)
-    gamma = GP.derive_randomness(gts, "gamma", (com_a, com_b, com_c))
-    beta = GP.derive_randomness(gts, "beta")
+    if protocol == "gnark":
+        gts = GP.GnarkTranscript(("gamma", "beta", "alpha", "zeta"))
+        GP.bind_public_data(gts, "gamma", pk.vk, publics)
+        gamma = GP.derive_randomness(gts, "gamma", (com_a, com_b, com_c))
+        beta = GP.derive_randomness(gts, "beta")
+    else:
+        ts = expanded_transcript(pk.vk, publics)
+        for label, com in zip((b"a", b"b", b"c"), (com_a, com_b, com_c)):
+            ts.absorb_point(label, com)
+        beta = ts.challenge(b"beta")
+        gamma = ts.challenge(b"gamma")
 
     # ---- Round 2: permutation grand product ---------------------------
     z_evals = _z_evals(
@@ -217,7 +234,11 @@ def prove(pk: ProvingKey, assignment_ints: list, rng_seed: bytes | None = None,
     z_c = _blind(N.intt(z_evals, domain), n, [[draw_blind(), draw_blind(), draw_blind()]])
     (com_z,) = commit_many([z_c])
     marks["round2"] = time.perf_counter()
-    alpha = GP.derive_randomness(gts, "alpha", (com_z,))
+    if protocol == "gnark":
+        alpha = GP.derive_randomness(gts, "alpha", (com_z,))
+    else:
+        ts.absorb_point(b"z", com_z)
+        alpha = ts.challenge(b"alpha")
 
     # ---- Round 3: quotient --------------------------------------------
     # PI polynomial: +pub_i at row i (gnark's completed qk).
@@ -242,12 +263,19 @@ def prove(pk: ProvingKey, assignment_ints: list, rng_seed: bytes | None = None,
     t_chunks = tuple(t_c[:, i * chunk : (i + 1) * chunk].contiguous() for i in range(3))
     com_t = commit_many(list(t_chunks))
     marks["round3"] = time.perf_counter()
-    zeta = GP.derive_randomness(gts, "zeta", com_t)
-
-    proof = GP.finish_prove(
-        pk, commit_many, publics, beta, gamma, alpha, zeta,
-        com_a, com_b, com_c, com_z, com_t, a_c, b_c, c_c, z_c, t_chunks,
-    )
+    if protocol == "gnark":
+        zeta = GP.derive_randomness(gts, "zeta", com_t)
+        proof = GP.finish_prove(
+            pk, commit_many, publics, beta, gamma, alpha, zeta,
+            com_a, com_b, com_c, com_z, com_t, a_c, b_c, c_c, z_c, t_chunks,
+        )
+    else:
+        for label, com in zip((b"t0", b"t1", b"t2"), com_t):
+            ts.absorb_point(label, com)
+        zeta = ts.challenge(b"zeta")
+        proof = _finish_expanded(
+            pk, commit_many, ts, zeta, com_a, com_b, com_c, com_z, com_t, a_c, b_c, c_c, z_c, t_chunks,
+        )
     marks["round45"] = time.perf_counter()
     if timings is not None:
         prev = t_start
@@ -255,3 +283,29 @@ def prove(pk: ProvingKey, assignment_ints: list, rng_seed: bytes | None = None,
             timings[name] = t - prev
             prev = t
     return proof
+
+
+def _finish_expanded(pk, commit_many, ts, zeta: int, com_a, com_b, com_c, com_z, com_t,
+                     a_c, b_c, c_c, z_c, t_chunks) -> Proof:
+    """Rounds 4-5 of the expanded protocol: the 15 zeta openings of
+    ZETA_OPENING_LABELS and z(zeta*omega), absorbed in that order; then
+    the batched opening with weights nu^i and the shifted opening of z."""
+    zeta_omega = zeta * N.Domain.get(pk.n).w_int % R
+    opened = {
+        "a": a_c, "b": b_c, "c": c_c, "z": z_c,
+        "s1": pk.s1, "s2": pk.s2, "s3": pk.s3,
+        "ql": pk.ql, "qr": pk.qr, "qo": pk.qo, "qm": pk.qm, "qc": pk.qc,
+        "t0": t_chunks[0], "t1": t_chunks[1], "t2": t_chunks[2],
+    }
+    polys = [opened[k] for k in ZETA_OPENING_LABELS]
+    all_vals = evals_pack(polys, zeta, zeta_omega, z_c)
+    evals, z_omega_val = all_vals[:-1], all_vals[-1]
+    for label, v in zip(ZETA_OPENING_LABELS, evals):
+        ts.absorb_felt(label.encode(), v)
+    ts.absorb_felt(b"z_omega", z_omega_val)
+    nu = ts.challenge(b"nu")
+    q_fold, q_zw = open_quotients(polys, [pow(nu, i, R) for i in range(len(polys))], zeta, zeta_omega, z_c)
+    w_zeta, w_zeta_omega = commit_many([q_fold, q_zw])
+    t0, t1, t2 = com_t
+    return Proof(a=com_a, b=com_b, c=com_c, z=com_z, t0=t0, t1=t1, t2=t2, evals=evals,
+                 z_omega=z_omega_val, w_zeta=w_zeta, w_zeta_omega=w_zeta_omega)

@@ -65,3 +65,33 @@ def felt_from_bytes_be(b: bytes, modulus: int = FR_MODULUS) -> int:
     """Deserialize like gnark ``Element.SetBytes`` (helpers.go:13-22):
     interpret big-endian and reduce mod the field."""
     return int.from_bytes(b, "big") % modulus
+
+
+def encode_felts(felts) -> str:
+    """``u32 BE count || 32B-BE felts``, hex-encoded (serialize.rs:33-47):
+    the witness wire format of ``target/witness.hex``."""
+    felts = list(felts)
+    return (len(felts).to_bytes(4, "big") + b"".join(felt_to_bytes_be(f) for f in felts)).hex()
+
+
+def decode_felts(encoded: str, modulus: int = FR_MODULUS) -> list[int]:
+    """Inverse of :func:`encode_felts` (helpers.go:24-33 /
+    ``Vector.UnmarshalBinary``)."""
+    raw = bytes.fromhex(encoded)
+    if len(raw) < 4:
+        raise ValueError("encoded felts shorter than the u32 count prefix")
+    n = int.from_bytes(raw[:4], "big")
+    body = raw[4:]
+    if len(body) != 32 * n:
+        raise ValueError(f"encoded felts: expected {32*n} body bytes, got {len(body)}")
+    return [felt_from_bytes_be(body[32 * i : 32 * i + 32], modulus) for i in range(n)]
+
+
+def decode_felt_hex(encoded: str, modulus: int = FR_MODULUS) -> int:
+    """Hex string -> felt, the coefficient format inside ACIR JSON
+    (helpers.go:13-22; fixtures main.go:233-246)."""
+    return felt_from_bytes_be(bytes.fromhex(encoded), modulus)
+
+
+def encode_felt_hex(x: int) -> str:
+    return felt_to_bytes_be(x).hex()

@@ -134,10 +134,43 @@ def test_backend_without_card_raises():
         Backend()
 
 
-@pytest.mark.parametrize("field,value", [("scheme", "groth16"), ("proof_format", "expanded")])
+@pytest.mark.parametrize("field,value", [
+    ("scheme", "groth16"), ("proof_format", "expanded"), ("proof_format", "linearized"),
+])
 def test_config_refuses_what_is_not_ported(field, value):
-    with pytest.raises(ValueError, match="unsupported"):
-        Config(**{field: value}).validate()
+    """Groth16 is not ported and is refused; the expanded proof layout is
+    ported and accepted; an unknown layout is refused."""
+    if value != "expanded":
+        with pytest.raises(ValueError, match="unsupported|unknown"):
+            Config(**{field: value}).validate()
+    else:
+        assert getattr(Config(**{field: value}).validate(), field) == value
+
+
+def test_legacy_pk_loads_and_proves(goldens, fixture_circuit, tmp_path):
+    """An NTPUPK_1 key (the v2 blob without its 8-byte SRS fingerprint,
+    as older JAX builds wrote it) loads in both packages to the same
+    key, and the port proves with it to the golden proof bytes."""
+    from noir_backend_using_gnark_tpu import artifacts as jax_artifacts
+
+    v2 = goldens["pk"]
+    assert v2[:8] == b"NTPUPK_2"
+    legacy = b"NTPUPK_1" + v2[16:]
+    mine = artifacts.pk_from_bytes(legacy)
+    theirs = jax_artifacts.pk_from_bytes(legacy)
+    assert mine.srs_fingerprint is None and theirs.srs_fingerprint is None
+    assert (mine.n, mine.nb_public, mine.nb_vars) == (theirs.n, theirs.nb_public, theirs.nb_vars)
+    for w in ("wire_a", "wire_b", "wire_c"):
+        assert np.array_equal(getattr(mine, w), getattr(theirs, w))
+    for name in artifacts._PK_POLYS:
+        assert np.array_equal(convert.limbs32_to_16(getattr(mine, name)), np.asarray(getattr(theirs, name)))
+    assert artifacts.vk_to_bytes(mine.vk) == goldens["vk"]
+
+    path = str(tmp_path / "srs.hex")
+    artifacts.save_srs(artifacts.srs_from_bytes(goldens["srs"]), path)
+    backend = Backend(Config(srs_path=path, srs_size=MG.SRS_SIZE, prover_seed=MG.SEED), device="cpu")
+    circuit, values = fixture_circuit
+    assert backend.prove_with_pk(circuit, values, legacy) == goldens["proof"]
 
 
 def test_bls12_381_proving_rejected(fixture_circuit):
